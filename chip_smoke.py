@@ -8,16 +8,22 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the Hopper kernels from whisper_tpu_torch/csrc with nvcc, with
      each kernel's registers, shared memory and spills;
   3. each kernel against its plain PyTorch version on the card at the
-     shapes large-v3-turbo's main path gives it (max error beside its
-     tolerance), then device times of the kernel, the plain version and a
-     library yardstick, with the least time the card could take;
-  4. the main path: a q5_0 large-v3-turbo file written from a seed,
+     shapes its path gives it (large-v3-turbo; whisper-bench -w 2's 4096^3
+     for qmm), max error beside its tolerance, then device times of the
+     kernel, the plain version and a library yardstick, with the least
+     time the card could take;
+  4. the paths, each with every launch count set to 0 just before it and
+     read just after: a q5_0 large-v3-turbo file written from a seed,
      `whisper_tpu_torch.load()` + `transcribe()` of 40 s of seeded audio
-     with default parameters (kv cache q8, then f16), with launch counts
-     read around each run, and one 30 s window of the q8 context under
-     torch.profiler (device busy share, device time by kernel);
+     with default parameters (kv cache q8, then f16), one 30 s window of
+     the q8 context under torch.profiler (device busy share, device time by
+     kernel), one 30 s encode on the flash route (WTPU_ENC_ATTN=flash)
+     against the fused-QKV route, the port's whisper-cli at its default
+     flags (beam search 5, best-of 5) on the same file and audio as a wav
+     (kv cache f16, then q8), and whisper-bench -w 1 and -w 2;
   5. the slice on the card against the slice on the CPU, on a small
-     decisive model: identical segments.
+     decisive model: identical segments, greedy and beam search, on the
+     fused-QKV and the flash encoder routes and on -nfa's plain graphs.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -252,6 +258,130 @@ def check_self_attend_q8(dev, DA):
     return agg
 
 
+def check_qmm(dev, QM):
+    """K5 at whisper-bench -w 2's shape: 4096^3, codes in [-16, 16) with
+    per-32 scales, f32 activations as the bench chain feeds them."""
+    N = 4096
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((N, N), generator=g).to(dev)
+    codes = torch.randint(-16, 16, (N, N), generator=g, dtype=torch.int8).to(dev)
+    scales = (0.02 * torch.rand((N, N // 32), generator=g)).to(dev)
+    y = QM.qmm(x, codes, scales)
+    ref = QM.qmm_plain(x, codes, scales)
+    torch.cuda.synchronize()
+    err = (y - ref).abs().max().item()
+    tol = 1e-4 * ref.abs().max().item()
+    log(f"  check qmm[T=K=R={N}]: max_abs_err={err:.3e} tol={tol:.3e}")
+    assert math.isfinite(err) and err <= tol
+    # x (f32) and codes read once, scales once, the f32 output written once
+    nbytes = N * N * 4 + N * N + N * (N // 32) * 4 + N * N * 4
+    flops = 2.0 * N ** 3
+    planes = {}
+
+    def plane(i):
+        if i not in planes:
+            planes[i] = (codes.clone(), scales.clone())
+        return planes[i]
+
+    def run_kernel(i):
+        c, sc = plane(i)
+        return lambda: QM.qmm(x, c, sc)
+
+    def run_plain(i):
+        c, sc = plane(i)
+        return lambda: QM.qmm_plain(x, c, sc)
+
+    # cuBLAS on bf16 x and the bf16-dequantized weight, f32 out
+    wdq = (codes.float() * scales.to(torch.bfloat16).float().repeat_interleave(32, 1)
+           ).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    lib = {}
+
+    def run_library(i):
+        if i not in lib:
+            lib[i] = wdq.clone()
+        w = lib[i]
+        return lambda: torch.mm(xb, w.T, out_dtype=torch.float32)
+
+    ms = device_ms(run_kernel, nbytes)
+    plain_ms = device_ms(run_plain, nbytes)
+    library_ms = device_ms(run_library, 2 * N * N * 2)
+    planes.clear()
+    lib.clear()
+    b_ms, by = bound_ms(nbytes, flops)
+    log(f"  time  qmm[T=K=R={N}]: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) "
+        f"tflops={flops / ms / 1e9:.2f}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+                flops=flops, err=err)
+
+
+def check_flash(dev, FA):
+    """K6 at turbo widths: H = 20 heads of 64, T = 1536 with 1500 real rows,
+    q, k and v passed as head views of the encoder's f32 (T, 3S) projection.
+    Real rows are compared; pad rows are junk."""
+    T, true_len, H, D = 1536, 1500, 20, 64
+    S = H * D
+    g = torch.Generator().manual_seed(4)
+    qkv = torch.randn((T, 3 * S), generator=g).to(dev)
+
+    def views(buf):
+        return [buf[:, i * S:(i + 1) * S].reshape(T, H, D).transpose(0, 1)
+                for i in range(3)]
+
+    out = FA.flash_self_attention(*views(qkv), true_len=true_len)
+    ref = FA.flash_self_attention_plain(*views(qkv), true_len=true_len)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    err = (out[:, :true_len] - ref[:, :true_len]).abs().max().item()
+    tol = 2e-2
+    log(f"  check flash_self_attention[H={H},T={T},true_len={true_len},D={D}]: "
+        f"max_abs_err={err:.3e} tol={tol:.3e} (real rows)")
+    assert math.isfinite(err) and err <= tol
+    # q, k, v read once (f32), the f32 output written once; the work is the
+    # two segments: real rows against real keys, pad rows against pad keys
+    nbytes = 3 * T * S * 4 + T * S * 4
+    flops = 4.0 * H * D * (true_len ** 2 + (T - true_len) ** 2)
+    bufs = {}
+
+    def buf(i):
+        if i not in bufs:
+            bufs[i] = views(qkv.clone())
+        return bufs[i]
+
+    def run_kernel(i):
+        q, k, v = buf(i)
+        return lambda: FA.flash_self_attention(q, k, v, true_len=true_len)
+
+    def run_plain(i):
+        q, k, v = buf(i)
+        return lambda: FA.flash_self_attention_plain(q, k, v, true_len=true_len)
+
+    heads = [h.to(torch.bfloat16).contiguous() for h in views(qkv)]
+    real = torch.arange(T, device=dev) < true_len
+    allow = real[:, None] == real[None, :]
+    lib = {}
+
+    def run_library(i):
+        if i not in lib:
+            lib[i] = [h.clone() for h in heads]
+        q, k, v = lib[i]
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=allow)
+
+    ms = device_ms(run_kernel, nbytes)
+    plain_ms = device_ms(run_plain, nbytes)
+    library_ms = device_ms(run_library, 4 * T * S * 2)
+    bufs.clear()
+    lib.clear()
+    b_ms, by = bound_ms(nbytes, flops)
+    log(f"  time  flash_self_attention[T={T}]: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) launches_per_encode=32")
+    # the JSON row: one encode's 32 layers, as K4's
+    return dict(ms=32 * ms, plain_ms=32 * plain_ms, library_ms=32 * library_ms,
+                bytes=32 * nbytes, flops=32 * flops, err=err)
+
+
 def check_self_attention_qkv(dev, EA):
     """K4 at turbo widths: T = 1536 (1500 padded), S = 1280, 20 heads of 64."""
     T, true_len, H, D = 1536, 1500, 20, 64
@@ -351,7 +481,7 @@ def run_main_path(W, counters, path: str, kv_itype: str, pcm: np.ndarray):
     tm = ctx.timings
     log(f"  [{kv_itype}] load_s={t_load:.3f} warmup_3s_wall_s={t_warm:.3f} "
         f"transcribe_wall_s={wall:.3f} segments={len(segs)} windows={tm.n_encode}")
-    for s in segs:
+    for s in segs[:5]:
         log(f"    [{s.t0:6d} -> {s.t1:6d}] {s.text!r} tokens={[t.id for t in s.tokens]}")
     readbacks = sum(fn.readbacks for fn in ctx._window_fns.values())
     # t=0 attempts run the device window loop (t_decode: one lane, prompt
@@ -384,6 +514,15 @@ def ms_per(t_us: int, n: int) -> float:
     return t_us / 1e3 / max(n, 1)
 
 
+def dev_us(e):
+    return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+
+def device_events(prof):
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def profile_window(W, ctx, pcm: np.ndarray) -> None:
     """One window at t = 0 (encode + the device window loop, no fallback)
     under torch.profiler: the device's busy share of the wall time, kernel
@@ -401,11 +540,7 @@ def profile_window(W, ctx, pcm: np.ndarray) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     tm = ctx.timings
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-
-    on_dev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_dev = device_events(prof)
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     n_launch = sum(e.count for e in on_dev)
     log(f"  profile: wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
@@ -418,13 +553,106 @@ def profile_window(W, ctx, pcm: np.ndarray) -> None:
         log(f"    {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:110]}")
 
 
+def flash_encode(M, FA, EA, ctx, pcm: np.ndarray) -> None:
+    """One 30 s encode on the flash route (WTPU_ENC_ATTN=flash: K6 in every
+    layer, no K4) against the same window on the fused-QKV route (K4)."""
+    ctx.pcm_to_mel(pcm[:16000 * 30])
+    mel = torch.from_numpy(np.ascontiguousarray(ctx.mel[:, :3000])).to(ctx.device)
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for route in ("auto", "flash"):
+        os.environ["WTPU_ENC_ATTN"] = route
+        M.encode(ctx.params, mel, ctx.hp, dtype=ctx.compute_dtype)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.encode(ctx.params, mel, ctx.hp, dtype=ctx.compute_dtype)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        EA.self_attention_qkv.launches = FA.flash_self_attention.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out[route] = M.encode(ctx.params, mel, ctx.hp, dtype=ctx.compute_dtype)
+            torch.cuda.synchronize()
+        n_k4, n_k6 = EA.self_attention_qkv.launches, FA.flash_self_attention.launches
+        on_dev = device_events(prof)
+        busy = sum(dev_us(e) for e in on_dev) / 1e3
+        attn = sum(dev_us(e) for e in on_dev
+                   if "enc_attn_kernel" in e.key or "flash_attn_kernel" in e.key) / 1e3
+        log(f"  encode route={route}: encode_wall_ms={ms:.3f} device_busy_ms={busy:.3f} "
+            f"attention_kernel_ms={attn:.3f} (profiler) "
+            f"self_attention_qkv_launches={n_k4} flash_self_attention_launches={n_k6}")
+    del os.environ["WTPU_ENC_ATTN"]
+    assert n_k6 == ctx.hp.n_audio_layer == 32 and n_k4 == 0, (n_k4, n_k6)
+    assert torch.isfinite(out["flash"]).all()
+    err = (out["flash"] - out["auto"]).abs().max().item()
+    log(f"  encoder output, flash route vs fused-QKV route (all 1500 rows real): "
+        f"max_abs_err={err:.4e} max_abs={out['auto'].abs().max().item():.4e}")
+    return n_k6
+
+
+def run_cli(W, TC, counters, model_path: str, wav: str, out_dir: str, extra):
+    """The port's whisper-cli at its default flags (beam 5, best-of 5) on the
+    card, writing -otxt -ojf; wall time of the CLI and of its transcribe."""
+    for fn in counters:
+        fn.launches = 0
+    inner, timed = W.transcribe, {}
+
+    def transcribe(ctx, *a, **kw):
+        t0 = time.perf_counter()
+        segs = inner(ctx, *a, **kw)
+        torch.cuda.synchronize()
+        timed["s"] = time.perf_counter() - t0
+        timed["tm"] = ctx.timings
+        timed["readbacks"] = sum(fn.readbacks for fn in ctx._window_fns.values())
+        return segs
+
+    W.transcribe = transcribe
+    base = os.path.join(out_dir, "cli" + "".join(extra).replace("-", "_"))
+    t0 = time.perf_counter()
+    try:
+        rc = TC.run(["-m", model_path, "-f", wav, "-otxt", "-ojf", "-of", base, "-np",
+                     *extra])
+    finally:
+        W.transcribe = inner
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    assert rc == 0
+    with open(base + ".json") as f:
+        js = json.load(f)
+    segs = js["transcription"]
+    with open(base + ".txt") as f:
+        n_lines = len(f.read().splitlines())
+    tm = timed["tm"]
+    log(f"  whisper-cli {' '.join(extra) or '(defaults)'}: cli_wall_s={wall:.3f} "
+        f"transcribe_wall_s={timed['s']:.3f} segments={len(segs)} txt_lines={n_lines}")
+    log(f"    encode_ms_per_window={ms_per(tm.t_encode_us, tm.n_encode):.3f} "
+        f"windows={tm.n_encode} device_loop_ms_per_step={ms_per(tm.t_decode_us, tm.n_decode):.3f} "
+        f"device_loop_steps={tm.n_decode} device_loop_readbacks={timed['readbacks']} "
+        f"host_loop_ms_per_step={ms_per(tm.t_batchd_us, tm.n_batchd):.3f} "
+        f"host_loop_steps={tm.n_batchd} host_sample_ms={tm.t_sample_us / 1e3:.3f} "
+        f"fallbacks={tm.n_fail_p}")
+    log(f"    launches={json.dumps(launches)}")
+    for sg in segs[:6]:
+        log(f"    [{sg['offsets']['from']:7d} -> {sg['offsets']['to']:7d}] {sg['text']!r}")
+    assert segs and n_lines == len(segs)
+    assert all(0 <= t["id"] < 51866 for sg in segs for t in sg["tokens"])
+    return launches
+
+
 def card_matches_cpu(tmp: str) -> None:
     """The slice on the card against the slice on the CPU (bf16 compute,
     packed weights on both) on a small decisive model and 35 s of seeded
-    audio: identical segments over two windows, for both kv caches.
+    audio: identical segments over two windows, greedy for both kv caches,
+    beam search for both kv caches, greedy on the flash encoder route
+    (WTPU_ENC_ATTN=flash: K6 on the card, its plain version on the CPU),
+    and greedy on -nfa's graphs (flash off, WTPU_ENC_ATTN and
+    WTPU_DECODE_ATTN `xla`: the unpadded plain encoder, and the q8 cache's
+    dequantize-and-attend graph in place of K3).
     tests/test_torch_gpu.py runs this same check."""
     import whisper_tpu_torch as W
     from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
+    from whisper_tpu_torch.ops import attention as FA
+    from whisper_tpu_torch.ops import decode_attn as DA
     from whisper_tpu_torch.utils.synth import write_synth_model
 
     hp = WhisperHParams(n_vocab=51865, n_audio_ctx=1500, n_audio_state=128,
@@ -433,17 +661,37 @@ def card_matches_cpu(tmp: str) -> None:
     path = os.path.join(tmp, "mini-q5_0.bin")
     write_synth_model(path, hp, seed=1, qtype="q5_0", decisive=True)
     audio = (0.1 * np.random.default_rng(5).standard_normal(16000 * 35)).astype(np.float32)
-    params = W.TranscribeParams(temperature_inc=0.0)
-    for kv in ("q8", "f16"):
+    greedy = W.TranscribeParams(temperature_inc=0.0)
+    beam = W.TranscribeParams.default(W.SamplingStrategy.BEAM_SEARCH)
+    beam.temperature_inc = 0.0
+    # (name, kv cache, params, WTPU_ENC_ATTN, WTPU_DECODE_ATTN, flash on)
+    cases = [("greedy", "q8", greedy, "auto", "auto", True),
+             ("greedy", "f16", greedy, "auto", "auto", True),
+             ("beam", "q8", beam, "auto", "auto", True),
+             ("beam", "f16", beam, "auto", "auto", True),
+             ("greedy-flash", "f16", greedy, "flash", "auto", True),
+             # -nfa: unpadded plain encoder, dequantize-and-attend q8 graph
+             ("greedy-nfa", "q8", greedy, "xla", "xla", False)]
+    for name, kv, params, enc_route, dec_route, flash_on in cases:
+        os.environ["WTPU_ENC_ATTN"] = enc_route
+        os.environ["WTPU_DECODE_ATTN"] = dec_route
+        FA.set_flash_enabled(flash_on)
+        FA.flash_self_attention.launches = DA.self_attend_q8.launches = 0
         gpu = W.transcribe(W.load(path, kv_itype=kv), params, audio)
+        n_k6, n_k3 = FA.flash_self_attention.launches, DA.self_attend_q8.launches
         cpu = W.transcribe(W.load(path, device="cpu", kv_itype=kv,
                                   use_packed_weights=True,
                                   compute_dtype=torch.bfloat16), params, audio)
+        del os.environ["WTPU_ENC_ATTN"], os.environ["WTPU_DECODE_ATTN"]
+        FA.set_flash_enabled(True)
         a = [(s.t0, s.t1, s.text) for s in gpu]
         b = [(s.t0, s.t1, s.text) for s in cpu]
-        log(f"  [{kv}] card segments={a}")
+        log(f"  [{name} {kv}] card segments={a}")
         assert a == b and len(a) >= 2, (a, b)
-        log(f"  [{kv}] card == cpu: {len(a)} segments identical")
+        assert (n_k6 > 0) == (enc_route == "flash"), n_k6
+        assert (n_k3 > 0) == (kv == "q8" and dec_route == "auto"), n_k3
+        log(f"  [{name} {kv}] card == cpu: {len(a)} segments identical (launches on "
+            f"the card: flash_self_attention {n_k6}, self_attend_q8 {n_k3})")
 
 
 def main() -> int:
@@ -457,9 +705,14 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import whisper_tpu_torch as W
+    from whisper_tpu_torch.audio.io import write_wav
+    from whisper_tpu_torch.cli import bench_cli as TB
+    from whisper_tpu_torch.cli import transcribe as TC
     from whisper_tpu_torch.formats import quants as Q
+    from whisper_tpu_torch.models.whisper import model as M
     from whisper_tpu_torch.models.whisper.hparams import LARGE_V3_TURBO
     from whisper_tpu_torch.ops import _cuda
+    from whisper_tpu_torch.ops import attention as FA
     from whisper_tpu_torch.ops import decode_attn as DA
     from whisper_tpu_torch.ops import enc_attn as EA
     from whisper_tpu_torch.ops import qmm as QM
@@ -487,9 +740,13 @@ def main() -> int:
     k1 = check_qmmt(dev, Q, QM)
     k3 = check_self_attend_q8(dev, DA)
     k4 = check_self_attention_qkv(dev, EA)
+    k5 = check_qmm(dev, QM)
+    k6 = check_flash(dev, FA)
 
-    log("== 4. main path: q5_0 large-v3-turbo, load() + transcribe()")
-    counters = [QM.qmmt_fused, QM.qmmt, DA.self_attend_q8, EA.self_attention_qkv]
+    log("== 4. paths: q5_0 large-v3-turbo, load() + transcribe(), flash encode, "
+        "whisper-cli, whisper-bench")
+    counters = [QM.qmmt_fused, QM.qmmt, DA.self_attend_q8, EA.self_attention_qkv,
+                QM.qmm, FA.flash_self_attention]
     pcm = seeded_audio(40.0, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "large-v3-turbo-q5_0.bin")
@@ -498,38 +755,63 @@ def main() -> int:
         log(f"  synth_s={time.perf_counter() - t0:.1f} bytes={os.path.getsize(path)}")
         ctx, segs_q8, launches = run_main_path(W, counters, path, "q8", pcm)
         profile_window(W, ctx, pcm[:16000 * 30])
+        n_flash = flash_encode(M, FA, EA, ctx, pcm)
         del ctx
         ctx, segs_f16, launches_f16 = run_main_path(W, counters, path, "f16", pcm)
         del ctx
+        wav = os.path.join(tmp, "audio-40s.wav")
+        write_wav(wav, pcm)
+        cli_f16 = run_cli(W, TC, counters, path, wav, tmp, [])
+        cli_q8 = run_cli(W, TC, counters, path, wav, tmp, ["--kv-itype", "q8"])
     same = [(s.t0, s.t1, s.text) for s in segs_q8] == [(s.t0, s.t1, s.text) for s in segs_f16]
     log(f"  q8 and f16 kv caches give the same segments: {same}")
     for name in ("qmmt_fused", "self_attend_q8", "self_attention_qkv"):
         assert launches[name] > 0, f"{name} was not launched on the main path"
     assert launches_f16["self_attend_q8"] == 0 and launches_f16["qmmt_fused"] > 0
+    assert launches["flash_self_attention"] == 0 and launches["qmm"] == 0
+    for cli in (cli_f16, cli_q8):
+        assert cli["qmmt_fused"] > 0 and cli["self_attention_qkv"] > 0
+    assert cli_q8["self_attend_q8"] > 0 and cli_f16["self_attend_q8"] == 0
+
+    log("  whisper-bench -w 1")
+    assert TB.main(["-w", "1"]) == 0
+    for fn in counters:
+        fn.launches = 0
+    log("  whisper-bench -w 2")
+    assert TB.main(["-w", "2"]) == 0
+    n_qmm = QM.qmm.launches
+    log(f"  whisper-bench -w 2: qmm launches={n_qmm}")
+    assert n_qmm > 0
 
     log("== 5. small decisive model: the card against the CPU")
     with tempfile.TemporaryDirectory() as tmp:
         card_matches_cpu(tmp)
 
-    def entry(name, src, replaces, agg):
+    def entry(name, src, replaces, agg, n_launches):
         b_ms, by = bound_ms(agg["bytes"], agg["flops"])
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": agg["err"], "ms": agg["ms"],
+                "launches": n_launches, "max_abs_err": agg["err"], "ms": agg["ms"],
                 "plain_ms": agg["plain_ms"], "bound_ms": b_ms, "bound_by": by,
                 "library_ms": agg["library_ms"]}
 
+    # launches: K1, K3, K4 on the q8 load() + transcribe() path; K5 on
+    # whisper-bench -w 2; K6 on the flash-route encode
     kernels = [
         entry("qmmt_fused", "whisper_tpu_torch/csrc/qmmt.cu",
-              "whisper_tpu/ops/qmm.py:333", k1["qmmt_fused"]),
+              "whisper_tpu/ops/qmm.py:333", k1["qmmt_fused"], launches["qmmt_fused"]),
         entry("self_attend_q8", "whisper_tpu_torch/csrc/decode_attn.cu",
-              "whisper_tpu/ops/decode_attn.py:96", k3),
+              "whisper_tpu/ops/decode_attn.py:96", k3, launches["self_attend_q8"]),
         entry("self_attention_qkv", "whisper_tpu_torch/csrc/enc_attn.cu",
-              "whisper_tpu/ops/enc_attn.py:107", k4),
+              "whisper_tpu/ops/enc_attn.py:107", k4, launches["self_attention_qkv"]),
+        entry("qmm", "whisper_tpu_torch/csrc/qmm.cu",
+              "whisper_tpu/ops/qmm.py:116", k5, n_qmm),
+        entry("flash_self_attention", "whisper_tpu_torch/csrc/flash_attn.cu",
+              "whisper_tpu/ops/attention.py:48", k6, n_flash),
     ]
-    # qmmt (K2) is the same kernel with its prologue and epilogue off; the
-    # main path never calls it, so it is reported apart from the path's kernels
+    # qmmt (K2) is the same kernel with its prologue and epilogue off; no
+    # path calls it, so it is reported apart from the paths' kernels
     off_path = [entry("qmmt", "whisper_tpu_torch/csrc/qmmt.cu",
-                      "whisper_tpu/ops/qmm.py:216", k1["qmmt"])]
+                      "whisper_tpu/ops/qmm.py:216", k1["qmmt"], launches["qmmt"])]
     log(json.dumps({"off_path_kernels": off_path}))
     log(f"  total_s={time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))

@@ -34,7 +34,7 @@ VERBATIM = [
     "formats/iquants.py", "formats/iq_tables.py", "formats/iq_grids.npz",
     "decoding/tokenizer.py", "decoding/languages.py", "decoding/logits.py",
     "decoding/params.py", "decoding/sampling.py", "decoding/stdrng.py",
-    "decoding/timestamps.py", "runtime/timings.py",
+    "decoding/timestamps.py", "runtime/timings.py", "audio/io.py",
 ]
 
 HP = WhisperHParams(n_vocab=51865, n_audio_ctx=64, n_audio_state=64,
@@ -47,6 +47,28 @@ def test_verbatim_copy(rel):
     a = (REPO / "whisper_tpu" / rel).read_bytes()
     b = (REPO / "whisper_tpu_torch" / rel).read_bytes()
     assert a == b, f"whisper_tpu_torch/{rel} drifted from whisper_tpu/{rel}"
+
+
+def test_output_writers_are_a_copy():
+    # one deliberate difference: the JSON's fixed "systeminfo" names the port
+    a = (REPO / "whisper_tpu" / "cli" / "output.py").read_text().splitlines()
+    b = (REPO / "whisper_tpu_torch" / "cli" / "output.py").read_text().splitlines()
+    assert len(a) == len(b)
+    diff = [(x, y) for x, y in zip(a, b) if x != y]
+    assert diff == [('        "systeminfo": "whisper_tpu (JAX/XLA/Pallas)",',
+                     '        "systeminfo": "whisper_tpu_torch (PyTorch/CUDA)",')]
+
+
+def test_logging_levels_are_a_copy():
+    import whisper_tpu.runtime.logging as JL
+    import whisper_tpu_torch.runtime.logging as TL
+
+    assert ([(k, int(v)) for k, v in TL.LogLevel.__members__.items()]
+            == [(k, int(v)) for k, v in JL.LogLevel.__members__.items()])
+    for fn in ("_default_callback", "log_set", "log", "log_info", "log_warn",
+               "log_error"):
+        assert inspect.getsource(getattr(TL, fn)) == inspect.getsource(getattr(JL, fn))
+    assert TL.print_system_info().startswith("WHISPER_TPU_TORCH : torch = ")
 
 
 @pytest.mark.parametrize("fn", ["hann_window", "pad_audio", "mel_frame_counts",

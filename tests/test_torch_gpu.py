@@ -5,7 +5,10 @@ the card with `python -m pytest tests/test_torch_gpu.py -m gpu`).
 
 Tolerances: qmmt 1e-4 of max |y| (f32 sums in another order over K up to
 5120); self_attend_q8 f32 1e-5, bf16 2e-2 (one bf16 ulp on p * s_v);
-self_attention_qkv 2e-2 (bf16 output).
+self_attention_qkv 2e-2 (bf16 output); qmm 1e-4 of max |y| (the same
+bf16-rounded operands, tensor-core f32 sums in another order over K up to
+4096); flash_self_attention 2e-2 absolute on real rows (bf16 output, and
+the online softmax rounds p to bf16 before its final rescale).
 """
 
 import numpy as np
@@ -13,6 +16,7 @@ import pytest
 import torch
 
 from whisper_tpu_torch.formats import quants as Q
+from whisper_tpu_torch.ops import attention as FA
 from whisper_tpu_torch.ops import decode_attn as DA
 from whisper_tpu_torch.ops import enc_attn as EA
 from whisper_tpu_torch.ops import qmm as QM
@@ -83,6 +87,41 @@ def test_self_attention_qkv_kernel(cuda, T, true_len, n_head, d):
     ref = EA.self_attention_qkv_plain(qkv, n_head, true_len=true_len)
     assert out.dtype == torch.bfloat16
     assert (out.float() - ref.float()).abs().max() <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("T,K,R,qk", [(4096, 4096, 4096, 32), (37, 256, 300, 16),
+                                      (1, 1280, 51866, 32), (130, 512, 129, 16)])
+def test_qmm_kernel(cuda, T, K, R, qk):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((T, K), generator=g).to(cuda)
+    codes = torch.randint(-16, 16, (R, K), generator=g, dtype=torch.int8).to(cuda)
+    scales = (0.02 * torch.rand((R, K // qk), generator=g)).to(cuda)
+    n = QM.qmm.launches
+    y = QM.qmm(x, codes, scales)
+    assert QM.qmm.launches == n + 1
+    ref = QM.qmm_plain(x, codes, scales)
+    torch.cuda.synchronize()
+    assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("H,T,true_len,D", [(20, 1536, 1500, 64), (2, 700, 650, 128),
+                                            (3, 100, 100, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_self_attention_kernel(cuda, H, T, true_len, D, dtype):
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn((T, 3 * H * D), generator=g).to(cuda, dtype)
+    S = H * D
+    # strided head views of the fused buffer, as the encoder passes them
+    q, k, v = (qkv[:, i * S:(i + 1) * S].reshape(T, H, D).transpose(0, 1)
+               for i in range(3))
+    n = FA.flash_self_attention.launches
+    out = FA.flash_self_attention(q, k, v, true_len=true_len)
+    assert FA.flash_self_attention.launches == n + 1
+    ref = FA.flash_self_attention_plain(q, k, v, true_len=true_len)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and tuple(out.shape) == (H, T, D)
+    assert torch.isfinite(out).all()
+    assert (out[:, :true_len] - ref[:, :true_len]).abs().max() <= 2e-2
 
 
 def test_transcribe_card_matches_cpu(cuda, tmp_path):

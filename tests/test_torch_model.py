@@ -90,8 +90,9 @@ def test_encode_bf16_padded_kernel_path(model, mel, monkeypatch):
     jp = jax.tree.map(jnp.asarray, model.params)
     ref = JM.encode(jp, jnp.asarray(mel), HP, dtype=jnp.bfloat16, pad_to=512)
     tp = params_from_numpy(model.params)
-    assert TM._use_enc_kernel(torch.bfloat16, 512, HP.n_audio_state // HP.n_audio_head)
-    out = TM.encode(tp, torch.from_numpy(mel), HP, dtype=torch.bfloat16)
+    assert TM._enc_attn_route(torch.bfloat16, 512, HP.n_audio_head,
+                              HP.n_audio_state // HP.n_audio_head) == "qkv"
+    out = TM.encode(tp, torch.from_numpy(mel), HP, dtype=torch.bfloat16, pad_to=512)
     close(out, ref, 5e-2)
 
 

@@ -104,3 +104,37 @@ def test_embed_lookup_matches_jax():
         TQMM.QWeight(torch.from_numpy(p.codes), torch.from_numpy(p.scales),
                      torch.from_numpy(p.mins)), torch.from_numpy(toks))
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+# K5: qmm over planes in file orientation, codes (R, K).  T and R are not
+# multiples of the JAX kernel's tiles (16 x 128 here), and qk is 32 (the
+# *_0 formats) or 16 (NVFP4 sub-blocks).  Tolerance 1e-5 of max |y|: the
+# same bf16-rounded operands on both sides, another f32 summation order.
+@pytest.mark.parametrize("qk", [32, 16])
+@pytest.mark.parametrize("T_,K_,R_", [(37, 256, 300), (1, 128, 5), (20, 512, 129)])
+def test_qmm_plain_matches_pallas(qk, T_, K_, R_):
+    rng = np.random.default_rng(T_ + K_ + R_ + qk)
+    x = rng.standard_normal((T_, K_)).astype(np.float32)
+    codes = rng.integers(-16, 16, (R_, K_)).astype(np.int8)
+    scales = (0.02 * rng.random((R_, K_ // qk))).astype(np.float32)
+    y_ref = np.asarray(JQMM.qmm(jnp.asarray(x), jnp.asarray(codes), jnp.asarray(scales),
+                                block_t=16, block_r=128, interpret=True))
+    before = TQMM.qmm.launches
+    y = TQMM.qmm(*(torch.from_numpy(a) for a in (x, codes, scales)))
+    assert TQMM.qmm.launches == before       # the CPU takes the plain path
+    assert y.dtype == torch.float32 and tuple(y.shape) == (T_, R_)
+    np.testing.assert_allclose(y.numpy(), y_ref, rtol=0, atol=1e-5 * np.abs(y_ref).max())
+
+
+def test_qmm_plain_rounds_like_the_tpu_kernel():
+    # W = bf16(bf16(code) * bf16(scale)) and x rounded to bf16: an input
+    # already in bf16 gives the same product
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(-16, 16, (8, 64)).astype(np.int8))
+    scales = torch.from_numpy((0.02 * rng.random((8, 2))).astype(np.float32))
+    y = TQMM.qmm_plain(x, codes, scales)
+    assert torch.equal(y, TQMM.qmm_plain(x.to(torch.bfloat16), codes, scales))
+    w = (codes.float() * scales.to(torch.bfloat16).float().repeat_interleave(32, 1))
+    ref = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().T
+    torch.testing.assert_close(y, ref, rtol=0, atol=0)

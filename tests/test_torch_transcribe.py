@@ -125,8 +125,7 @@ def test_refusals(model_path):
         W.WhisperContext(model, device="cpu", precision="ggml_cpu_f16")
     ctx = W.WhisperContext(model, device="cpu")
     pcm = np.zeros(16000, np.float32)
-    for kw in (dict(vad=True), dict(grammar_rules=[[]]),
-               dict(strategy=W.SamplingStrategy.BEAM_SEARCH)):
+    for kw in (dict(vad=True), dict(grammar_rules=[[]])):
         with pytest.raises(NotImplementedError):
             W.transcribe(ctx, W.TranscribeParams(**kw), pcm)
     with pytest.raises(NotImplementedError):

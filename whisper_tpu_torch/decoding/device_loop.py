@@ -1,7 +1,12 @@
 """Window decoding with the token-loop state resident on the device.
 
 Port of whisper_tpu/decoding/device_loop.py for the GREEDY strategy (one
-lane at t=0; `best_of` independent sampling lanes at t>0).  The JAX package
+lane at t=0; `best_of` independent sampling lanes at t>0) and BEAM SEARCH at
+t=0 (deterministic top-k candidates, cumulative-logprob ranking with the
+host loop's stable tie-break, rolling-hash sequence dedup, parent gathers
+of the KV cache and the token buffers).  The JAX package's native
+window x beam batching (`decode_windows_native`, grouped selection) is not
+ported.  The JAX package
 runs the whole window inside one `lax.while_loop`; here a host loop drives
 one device-resident state: logit filters, selection, timestamp and stop
 rules, the KV cache and the token buffers stay tensors on the device, and
@@ -191,13 +196,81 @@ def _sample(logprobs, probs, temperature: float, generator, beg: int):
             torch.where(is_ts_tok, p, pt), sum_ts)
 
 
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, m: int) -> torch.Tensor:
+    """(h * m) mod 2^32 for int64 h in [0, 2^32), without int64 overflow:
+    the JAX package's uint32 rolling-hash arithmetic."""
+    lo = h * (m & 0xFFFF)
+    hi = ((h * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _beam_select_core(logprobs, live, sum_logprobs, seq_hash, step_i: int,
+                      beg: int):
+    """Device-side beam step (reference: src/whisper.cpp:7303-7354 and the
+    host loop in full.py), as the JAX package's `_beam_select_core`.
+
+    Each live beam proposes its top-B tokens (ties to the lower id, as
+    lax.top_k); candidates rank by cumulative sequence logprob with the
+    stable flattened (beam, k) tie-break, the host sort key (-score,
+    decoder_idx); consecutive duplicate sequences (rolling hashes) are
+    skipped when step_i > 0; surplus beams wrap to the best candidate.
+    Returns (parent per beam, token, score, new hashes (B, 2))."""
+    B = logprobs.shape[0]
+    dev = logprobs.device
+    vals, ids = torch.sort(logprobs, dim=-1, descending=True, stable=True)
+    vals, ids = vals[:, :B], ids[:, :B]                        # (B, B)
+    cand_score = (sum_logprobs[:, None] + vals).masked_fill(~live[:, None], NEG_INF)
+    h1 = (_mul32(seq_hash[:, 0:1], 1000003) + ids + 1) & _MASK32
+    h2 = (_mul32(seq_hash[:, 1:2], 2654435761) + ids + 1) & _MASK32
+
+    flat_score = cand_score.reshape(-1)
+    flat_tok = ids.reshape(-1)
+    flat_parent = torch.arange(B, device=dev).repeat_interleave(B)
+    flat_h1, flat_h2 = h1.reshape(-1), h2.reshape(-1)
+
+    order = torch.argsort(-flat_score, stable=True)
+    s_score = flat_score[order]
+    s_h1, s_h2 = flat_h1[order], flat_h2[order]
+    # consecutive-duplicate mask in sorted order (off at step 0)
+    dup = torch.zeros(B * B, dtype=torch.bool, device=dev)
+    if step_i > 0:
+        dup[1:] = (s_h1[1:] == s_h1[:-1]) & (s_h2[1:] == s_h2[:-1])
+    elig = ~dup & (s_score > NEG_INF)
+    rank = torch.cumsum(elig.long(), 0) - 1
+    total = torch.clamp(elig.long().sum(), min=1)
+
+    # the m-th live beam takes the m-th eligible candidate; surplus beams
+    # wrap to the best one (full.py's cur_c = 0)
+    m = torch.where(live, torch.cumsum(live.long(), 0) - 1, 0) % total
+    hit = (rank[None, :] == m[:, None]) & elig[None, :]        # (B, B*B)
+    pick = order[hit.long().argmax(1)]
+    src = torch.where(live, flat_parent[pick], torch.arange(B, device=dev))
+    new_hash = torch.where(live[:, None],
+                           torch.stack([flat_h1[pick], flat_h2[pick]], 1), seq_hash)
+    return src, flat_tok[pick], flat_score[pick], new_hash
+
+
+def _beam_select(logprobs, completed, failed, sum_logprobs, seq_hash, step_i: int,
+                 beg: int):
+    """Single-group wrapper over `_beam_select_core` (the one-window path):
+    the live lanes are those neither completed nor failed."""
+    return _beam_select_core(logprobs, ~(completed | failed), sum_logprobs,
+                             seq_hash, step_i, beg)
+
+
 def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                         compute_dtype, no_timestamps: bool,
                         single_segment: bool, vocab_eot: int, vocab_beg: int,
-                        kv_itype: str = "f16"):
-    """Build the whole-window greedy/best-of decode function for one
-    (lane count, prompt bucket, timestamp mode).  `readbacks` on the
+                        kv_itype: str = "f16", strategy: str = "greedy"):
+    """Build the whole-window decode function for one (lane count, prompt
+    bucket, timestamp mode, strategy): "greedy" (greedy or best-of
+    sampling lanes) or "beam" (beam search at t=0).  `readbacks` on the
     returned function counts the host reads of device flags."""
+    if strategy not in ("greedy", "beam"):
+        raise ValueError(f"unknown window strategy {strategy!r}")
     n_max = hp.n_text_ctx // 2 - 4
     eot, beg = vocab_eot, vocab_beg
     cache_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
@@ -256,6 +329,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
         tok_p, tok_plog, tok_pt, tok_ptsum = (zeros(torch.float32, B, n_max)
                                               for _ in range(4))
         n_tok = zeros(torch.long, B)
+        seq_hash = zeros(torch.long, B, 2)       # rolling uint32 hashes (beam)
 
         for i in range(n_max):
             live = ~(completed | failed)
@@ -263,9 +337,28 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                 logits_row, i, last_id, penult_id, has_ts, seek_delta,
                 base_mask, initial_mask, temperature, max_tokens, eot, beg,
                 no_timestamps, single_segment)
-            tok, p, plog, tid, pt, ptsum = _sample(logprobs, probs,
-                                                   temperature, gen, beg)
-            sum_logprobs = torch.where(live, sum_logprobs + plog, sum_logprobs)
+            if strategy == "beam":
+                # candidates, dedup, selection, then every per-lane state
+                # follows its parent (the completed/failed flags stay per
+                # slot, as in the JAX package)
+                src, tok, score, seq_hash = _beam_select(
+                    logprobs, completed, failed, sum_logprobs, seq_hash, i, beg)
+                cache = cache.reorder(src)
+                probs_g, logprobs_g = probs[src], logprobs[src]
+                p = probs_g.gather(-1, tok[:, None])[:, 0]
+                plog = logprobs_g.gather(-1, tok[:, None])[:, 0]
+                tid, pt, ptsum = _token_stats(probs_g, logprobs_g, tok, p, beg)
+                last_id, penult_id, has_ts, seek_delta, result_len, n_tok = (
+                    a[src] for a in (last_id, penult_id, has_ts, seek_delta,
+                                     result_len, n_tok))
+                tok_id, tok_tid, tok_p, tok_plog, tok_pt, tok_ptsum = (
+                    a[src] for a in (tok_id, tok_tid, tok_p, tok_plog, tok_pt,
+                                     tok_ptsum))
+                sum_logprobs = torch.where(live, score, sum_logprobs)
+            else:
+                tok, p, plog, tid, pt, ptsum = _sample(logprobs, probs,
+                                                       temperature, gen, beg)
+                sum_logprobs = torch.where(live, sum_logprobs + plog, sum_logprobs)
 
             # write buffers for live lanes at column i
             for buf, val in ((tok_id, tok), (tok_tid, tid), (tok_p, p),

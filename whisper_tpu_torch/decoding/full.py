@@ -2,15 +2,16 @@
 
 Port of whisper_tpu/decoding/full.py (itself a port of
 `whisper_full_with_state`, src/whisper.cpp:6829-7786): language
-auto-detect, the temperature fallback ladder, greedy decoder fan-out, the
-per-30s-window seek loop driven by timestamp tokens, prompt-history carry,
-failure rules (repetition, entropy, logprob, no-speech) and segment
-emission with timestamp-token splitting.
+auto-detect, the temperature fallback ladder, greedy and beam-search
+decoder fan-out, the per-30s-window seek loop driven by timestamp tokens,
+prompt-history carry, failure rules (repetition, entropy, logprob,
+no-speech) and segment emission with timestamp-token splitting.
 
 Every decoder rule stays on the host; the tensor work runs in
-:class:`WhisperContext`.  Not ported yet, and refused with
-NotImplementedError rather than routed elsewhere: VAD, grammars, beam
-search and DTW token timestamps.
+:class:`WhisperContext`.  Beam state lives in a dense [beam] axis;
+reshuffling is a device-side gather (KVCache.reorder).  Not ported yet, and
+refused with NotImplementedError rather than routed elsewhere: VAD,
+grammars and DTW token timestamps.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..models.whisper.hparams import CHUNK_SIZE
 from ..runtime.context import WhisperContext
@@ -28,7 +30,8 @@ from . import logits as LF
 from .languages import lang_id as lang_to_id, lang_str, LANGUAGES
 from .params import (HISTORY_CONDITIONING_TEMP_CUTOFF, SamplingStrategy,
                      TranscribeParams)
-from .sampling import Sequence, TokenData, sample_token, sequence_score
+from .sampling import (Sequence, TokenData, sample_token, sample_token_topk,
+                       sequence_score, sequences_equal)
 
 MAX_DECODERS = 8  # WHISPER_MAX_DECODERS
 DELTA_MIN = 10    # don't process <100 ms (src/whisper.cpp:6881)
@@ -63,6 +66,14 @@ class _Decoder:
     probs: Optional[np.ndarray] = None
 
 
+@dataclass
+class _BeamCandidate:
+    decoder_idx: int
+    seek_delta: int
+    has_ts: bool
+    sequence: Sequence
+
+
 def lang_auto_detect(ctx: WhisperContext, offset_ms: int = 0) -> Tuple[int, np.ndarray]:
     """whisper_lang_auto_detect_with_state (src/whisper.cpp:4045-4118):
     encode window at offset, decode [SOT], softmax over language tokens."""
@@ -91,7 +102,6 @@ def _refuse_unported(params: TranscribeParams) -> None:
     unported = {
         "vad": params.vad,
         "grammar_rules": params.grammar_rules is not None,
-        "strategy=BEAM_SEARCH": params.strategy == SamplingStrategy.BEAM_SEARCH,
     }
     names = [k for k, on in unported.items() if on]
     if names:
@@ -162,8 +172,12 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
     else:
         temperatures = [params.temperature]
 
-    # decoder fan-out size (greedy: best_of lanes at t > 0)
-    n_decoders = max(1, params.greedy.best_of)
+    # decoder fan-out size
+    if params.strategy == SamplingStrategy.GREEDY:
+        n_decoders = params.greedy.best_of
+    else:
+        n_decoders = max(params.greedy.best_of, params.beam_search.beam_size)
+    n_decoders = max(1, n_decoders)
     if n_decoders > MAX_DECODERS:
         raise ValueError(f"too many decoders requested ({n_decoders})")
 
@@ -223,7 +237,13 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
     params_no_ts = no_timestamps
 
     # device-loop eligibility: the whole token loop runs with its state on
-    # the device unless a host-side feature (logits callback) is requested
+    # the device unless a host-side feature (logits callback) is requested.
+    # Beam search runs there at t=0 with DETERMINISTIC top-k candidates, as
+    # in the JAX package (the reference DRAWS beam_size candidates from the
+    # filtered distribution, whisper.cpp:7262, which on a peaked
+    # distribution gives copies of the argmax); the mt19937 draws it skips
+    # are accounted for below.  At t>0 the reference degrades BEAM_SEARCH
+    # to best_of sampling decoders (src/whisper.cpp:7086-7091).
     device_loop_ok = not ctx.is_empty and params.logits_filter_callback is None
 
     # abort hook: the reference checks `abort_callback` before every graph
@@ -268,7 +288,12 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                 ctx.prompt_past0 = prompt_past0
                 ctx.prompt_past1 = prompt_past1
                 return result_all
-            n_decoders_cur = max(1, params.greedy.best_of) if t_cur > 0.0 else 1
+            if params.strategy == SamplingStrategy.GREEDY:
+                n_decoders_cur = params.greedy.best_of if t_cur > 0.0 else 1
+            else:
+                n_decoders_cur = (params.greedy.best_of if t_cur > 0.0
+                                  else params.beam_search.beam_size)
+            n_decoders_cur = max(1, n_decoders_cur)
 
             for j in range(n_decoders_cur):
                 d = decoders[j]
@@ -298,14 +323,24 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
 
             # t>0 attempts draw stochastically; faithful_sampling routes
             # them through the host loop whose StdRng replays the reference
-            # binary's exact mt19937 candidate sequence (stdrng.py)
+            # binary's exact mt19937 candidate sequence (stdrng.py).
+            # beam_sampling="reference" also routes t=0 BEAM attempts there:
+            # the host loop's sample_token_topk draws beam_size candidates
+            # per decoder per step as the binary does (whisper.cpp:7262)
+            faithful_beam = (params.strategy == SamplingStrategy.BEAM_SEARCH
+                             and params.beam_sampling == "reference")
             use_device_loop = device_loop_ok and (
-                t_cur == 0.0 or not params.faithful_sampling)
+                t_cur == 0.0 or not params.faithful_sampling) and not (
+                faithful_beam and t_cur == 0.0)
+            dl_strategy = ("beam" if (params.strategy ==
+                                      SamplingStrategy.BEAM_SEARCH and
+                                      t_cur == 0.0) else "greedy")
 
             if use_device_loop:
                 res = ctx.decode_window_device(
                     prompt, n_decoders_cur, t_cur, seek, seek_end, params,
-                    params_no_ts, rng_seed=seek * 31 + it)
+                    params_no_ts, rng_seed=seek * 31 + it,
+                    strategy=dl_strategy)
                 ctx.no_speech_prob = float(res.prompt_probs[vocab.token_nosp])
                 for j in range(n_decoders_cur):
                     d = decoders[j]
@@ -324,6 +359,16 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                     d.has_ts = bool(res.has_ts[j])
                     d.failed = bool(res.failed[j])
                     d.completed = bool(res.completed[j])
+                    if (dl_strategy == "beam" and params.faithful_sampling
+                            and d.rng is not None):
+                        # the reference's t=0 BEAM attempt draws beam_size
+                        # candidates per step from slot j's mt19937
+                        # (whisper.cpp:7262, :6600-6604); the device attempt
+                        # drew none, so advance the emulated stream to keep
+                        # a later host-replayed t>0 fallback at the binary's
+                        # exact position (one canonical per draw)
+                        d.rng.skip_draws(
+                            params.beam_search.beam_size * int(res.n_tok[j]))
             elif not ctx.is_empty:
                 # fresh KV; decode the prompt once (beam 0), tile across beams
                 cache1 = ctx.new_cache(1)
@@ -360,16 +405,60 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
             n_max = 0 if use_device_loop else hp.n_text_ctx // 2 - 4
             for i in range(n_max):
                 t0s = time.perf_counter()
+                bc_per_dec: List[List[_BeamCandidate]] = [[] for _ in range(n_decoders_cur)]
 
                 # sampling
                 for j in range(n_decoders_cur):
                     d = decoders[j]
                     if d.completed or d.failed:
                         continue
-                    td = sample_token(vocab, d.probs, d.logprobs,
-                                      best=t_cur < 1e-6, rng=d.rng)
-                    d.sequence.tokens.append(td)
-                    d.sequence.sum_logprobs_all += td.plog
+                    if params.strategy == SamplingStrategy.GREEDY:
+                        td = sample_token(vocab, d.probs, d.logprobs,
+                                          best=t_cur < 1e-6, rng=d.rng)
+                        d.sequence.tokens.append(td)
+                        d.sequence.sum_logprobs_all += td.plog
+                    else:
+                        for td in sample_token_topk(
+                                vocab, d.probs, d.logprobs,
+                                params.beam_search.beam_size, d.rng):
+                            bc = _BeamCandidate(j, d.seek_delta, d.has_ts,
+                                                d.sequence.copy())
+                            bc.sequence.tokens.append(td)
+                            bc.sequence.sum_logprobs_all += td.plog
+                            bc_per_dec[j].append(bc)
+
+                beam_candidates: List[_BeamCandidate] = []
+                for bc in bc_per_dec:
+                    beam_candidates.extend(bc)
+                    if bc:
+                        ctx.timings.n_sample += 1
+
+                # beam-search: pick top candidates, reshuffle KV
+                if params.strategy == SamplingStrategy.BEAM_SEARCH:
+                    beam_candidates.sort(
+                        key=lambda c: (-c.sequence.sum_logprobs_all, c.decoder_idx))
+                    cur_c = 0
+                    src_rows = list(range(n_decoders_cur))
+                    for j in range(n_decoders_cur):
+                        d = decoders[j]
+                        if d.completed or d.failed:
+                            continue
+                        if cur_c >= len(beam_candidates):
+                            cur_c = 0
+                        cur = beam_candidates[cur_c]
+                        cur_c += 1
+                        while (len(beam_candidates) > cur_c and
+                               sequences_equal(beam_candidates[cur_c].sequence,
+                                               cur.sequence) and i > 0):
+                            cur_c += 1
+                        d.seek_delta = cur.seek_delta
+                        d.has_ts = cur.has_ts
+                        # value copy (src/whisper.cpp:7336): a candidate can
+                        # seed several decoders; each must own its sequence
+                        d.sequence = cur.sequence.copy()
+                        src_rows[j] = cur.decoder_idx
+                    if cache is not None and src_rows != list(range(n_decoders_cur)):
+                        cache = cache.reorder(torch.tensor(src_rows, device=ctx.device))
 
                 # update decoder state
                 for j in range(n_decoders_cur):

@@ -8,9 +8,10 @@ decoder's self-attention cache is head-major (L, B, H, 2, C, d).
 `dtype` is the matmul input precision: every product rounds its operands to
 `dtype` and accumulates and returns f32, as the JAX package's
 `preferred_element_type=f32` dots do (bf16 on the card, f32 for exactness on
-the CPU).  Three hand-written kernels carry the hot paths
-(ops/qmm.py, ops/enc_attn.py, ops/decode_attn.py); everything else is
-plain tensor code, as it is plain XLA in the JAX package.
+the CPU).  Hand-written kernels carry the hot paths (ops/qmm.py,
+ops/enc_attn.py, ops/attention.py, ops/decode_attn.py), on the routes the
+JAX package picks (WTPU_ENC_ATTN, WTPU_DECODE_ATTN, `set_flash_enabled`);
+everything else is plain tensor code, as it is plain XLA in the JAX package.
 
 One deliberate difference from the JAX package: `decode_step` writes the new
 K/V column into the cache IN PLACE (the JAX functions are pure and return a
@@ -25,8 +26,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ...ops.decode_attn import self_attend_q8
-from ...ops.enc_attn import self_attention_qkv
+from ...ops import attention as flash
+from ...ops import decode_attn, enc_attn
 from ...ops.qmm import QWeight, QWeightT, embed_lookup, qmmt_auto, qmmt_fused_auto
 from .hparams import WhisperHParams
 
@@ -166,10 +167,20 @@ def _segment_mask(t_pad: int, true_len: int, device) -> torch.Tensor:
     return torch.where(allow, 0.0, -1e9).float()[None]
 
 
-def _use_enc_kernel(dtype, t_pad: int, d_head: int) -> bool:
-    """The fused-QKV attention kernel serves bf16 encodes over a
-    512-padded stream with 64- or 128-wide heads — every Whisper size."""
-    return dtype == torch.bfloat16 and t_pad % 512 == 0 and d_head in (64, 128)
+def _enc_attn_route(dtype, t_pad: int, n_head: int, d_head: int) -> str:
+    """The graph the encoder's self-attention takes, chosen as the JAX
+    package chooses it (whisper_tpu/models/whisper/model.py _encoder_block):
+    the fused-QKV kernel ("qkv") for bf16 encodes over a 512-padded stream
+    with 64- or 128-wide heads that pair into 128 lanes, when
+    WTPU_ENC_ATTN allows it; else the flash kernel ("flash") when
+    `use_flash` holds; else the plain graph ("plain").  Each is the user's
+    choice of graph, never a fallback for a kernel that fails."""
+    if (enc_attn.use_kernel() and dtype == torch.bfloat16 and t_pad % 512 == 0
+            and d_head in (64, 128) and n_head % max(1, 128 // d_head) == 0):
+        return "qkv"
+    if flash.use_flash(t_pad, dtype):
+        return "flash"
+    return "plain"
 
 
 def _encoder_block(x: torch.Tensor, blk: Dict[str, torch.Tensor], n_head: int,
@@ -180,15 +191,20 @@ def _encoder_block(x: torch.Tensor, blk: Dict[str, torch.Tensor], n_head: int,
     n_state = x.shape[-1]
     qkv = _mm(h, blk["qkv_w"], dtype) + blk["qkv_b"]
     t_pad = qkv.shape[-2]
-    if _use_enc_kernel(dtype, t_pad, n_state // n_head):
-        merged = self_attention_qkv(
+    route = _enc_attn_route(dtype, t_pad, n_head, n_state // n_head)
+    if route == "qkv":
+        merged = enc_attn.self_attention_qkv(
             qkv, n_head, true_len=true_len if true_len is not None else t_pad)
     else:
         qh, kh, vh = (_split_heads(qkv[..., i * n_state:(i + 1) * n_state],
                                    n_head) for i in range(3))
-        m = (_segment_mask(t_pad, true_len, x.device)
-             if true_len is not None else None)
-        merged = _merge_heads(attention(qh, kh, vh, m, dtype))
+        if route == "flash":
+            out = flash.flash_self_attention(qh, kh, vh, true_len=true_len)
+        else:
+            m = (_segment_mask(t_pad, true_len, x.device)
+                 if true_len is not None else None)
+            out = attention(qh, kh, vh, m, dtype)
+        merged = _merge_heads(out)
     x = x + _mm(merged, blk["o_w"], dtype) + blk["o_b"]
     h = layer_norm(x, blk["mlp_ln_w"], blk["mlp_ln_b"], eps)
     h = _gelu(_mm(h, blk["mlp0_w"], dtype) + blk["mlp0_b"])
@@ -203,17 +219,19 @@ def encode(params: Dict[str, Any], mel: torch.Tensor, hp: WhisperHParams,
            dtype=torch.bfloat16, pad_to: Optional[int] = None) -> torch.Tensor:
     """mel (n_mels, 2*n_ctx) -> encoder embeddings (n_ctx, n_state).
 
-    Padded residency: for bf16 encodes the residual stream is padded ONCE to
-    a multiple of 512 (1500 -> 1536) for the whole block stack and sliced
-    back before ln_post; the pad rows are their own attention segment, so
-    real rows are unaffected.  `pad_to` forces a padded length."""
+    Padded residency: when the flash route is on (`use_flash`), the
+    residual stream is padded ONCE to a multiple of 512 (1500 -> 1536) for
+    the whole block stack and sliced back before ln_post; the pad rows are
+    their own attention segment, so real rows are unaffected.  With flash
+    off (-nfa) the stream stays unpadded, as in the JAX package.  `pad_to`
+    forces a padded length."""
     enc = params["enc"]
     x = conv_stem(enc, mel, dtype)
     n_ctx = x.shape[0]
     x = x + enc["pos_embd"][:n_ctx]
     tp = pad_to
-    if tp is None and dtype == torch.bfloat16 and n_ctx >= 256:
-        tp = -(-max(n_ctx, 512) // 512) * 512
+    if tp is None and flash.use_flash(n_ctx, dtype):
+        tp = flash._round_up(max(n_ctx, 512), 512)
     true_len = None
     if tp is not None and tp > n_ctx:
         x = F.pad(x, (0, 0, 0, tp - n_ctx))
@@ -352,7 +370,10 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     if attn_mask is not None:
         mask = mask + attn_mask[..., :A]
     is_q8 = isinstance(cache, KVCache8)
-    if is_q8:
+    # q8 cache: the kernel K3, unless WTPU_DECODE_ATTN=xla (which -nfa sets)
+    # asks for the dequantize-and-attend graph, as in the JAX package
+    use_dattn = is_q8 and decode_attn.use_kernel()
+    if use_dattn:
         kmask = mask[:, 0].expand(n_beam, n_tok, A).contiguous()
     # a write past the last cell lands on the last n_tok cells, as JAX's
     # dynamic_update_slice clamps its start index
@@ -378,8 +399,18 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
             codes, sc = _quantize_rows(kv2)                 # (B,T,2,S), (B,T,2)
             cache.kv[l, :, :, :, start:start + n_tok] = to_col(codes)
             cache.scale[l, :, :, start:start + n_tok] = sc.transpose(1, 2)
-            out = self_attend_q8(cache.kv, cache.scale, qh, kmask, l=l,
-                                 attn_ctx=A, dtype=dtype)
+            if use_dattn:
+                out = decode_attn.self_attend_q8(cache.kv, cache.scale, qh, kmask,
+                                                 l=l, attn_ctx=A, dtype=dtype)
+            else:
+                s_l = cache.scale[l]                        # (B, 2, C)
+                kh = cache.kv[l, :, :, 0, :A]               # (B, H, A, d) int8
+                vh = cache.kv[l, :, :, 1, :A]
+                scores = matmul_f32(qh, kh.transpose(-1, -2), dtype)
+                scores = (scores * s_l[:, None, None, 0, :A]
+                          / math.sqrt(d_head) + mask)
+                probs = torch.softmax(scores.float(), dim=-1)
+                out = matmul_f32(probs * s_l[:, None, None, 1, :A], vh, dtype)
         else:
             cache.kv[l, :, :, :, start:start + n_tok] = to_col(kv2).to(cache.kv.dtype)
             kv_l = cache.kv[l]

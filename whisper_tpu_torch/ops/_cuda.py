@@ -29,6 +29,8 @@ SOURCES = {
     "qmmt": "qmmt.cu",
     "decode_attn": "decode_attn.cu",
     "enc_attn": "enc_attn.cu",
+    "qmm": "qmm.cu",
+    "flash_attn": "flash_attn.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -102,10 +104,13 @@ def library(name: str) -> ctypes.CDLL:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "qmmt": {"wtt_qmmt": [_P] * 9 + [_I] * 6 + [_F, _P]},
     "decode_attn": {"wtt_self_attend_q8": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P]},
     "enc_attn": {"wtt_self_attention_qkv": [_P, _P] + [_I] * 4 + [_P]},
+    "qmm": {"wtt_qmm": [_P] * 4 + [_I] * 4 + [_P]},
+    "flash_attn": {"wtt_flash_attn": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P]},
 }
 
 

@@ -11,8 +11,19 @@ kernel of csrc/decode_attn.cu; on a CPU tensor it runs
 from __future__ import annotations
 
 import math
+import os
 
 import torch
+
+
+def use_kernel() -> bool:
+    """Route decode_step's q8 self-attention through this kernel?
+
+    WTPU_DECODE_ATTN (auto|pallas|xla), as in the JAX package: `xla` (which
+    -nfa sets) takes the dequantize-and-attend graph instead; `auto` and
+    `pallas` take the kernel (the JAX package's `auto` means a real TPU;
+    here it is the card, or the kernel's plain version on a CPU tensor)."""
+    return os.environ.get("WTPU_DECODE_ATTN", "auto") != "xla"
 
 
 def self_attend_q8_plain(kv: torch.Tensor, scale: torch.Tensor,

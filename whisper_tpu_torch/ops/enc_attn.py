@@ -12,9 +12,21 @@ CPU tensor it runs `self_attention_qkv_plain`.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
+
+
+def use_kernel() -> bool:
+    """Route encoder self-attention through this kernel?
+
+    WTPU_ENC_ATTN (auto|pallas|xla|flash), as in the JAX package: `pallas`
+    forces the kernel, `xla` and `flash` turn it off.  `auto` is the kernel:
+    the port runs on one card and has no mesh (the JAX package keeps the
+    flash/plain route under a multi-device mesh, since the kernel does not
+    partition by head)."""
+    return os.environ.get("WTPU_ENC_ATTN", "auto") not in ("xla", "flash")
 
 
 def self_attention_qkv_plain(qkv: torch.Tensor, n_head: int,

@@ -14,6 +14,11 @@ per-block scales (and mins for affine formats), so the decode matmuls read
 bare product.  On a CUDA tensor both launch the Hopper kernel of
 csrc/qmmt.cu; on a CPU tensor they run the plain PyTorch version beside
 them, which the tests hold to the JAX package's Pallas kernel.
+
+`qmm` is the product over planes in file orientation, codes (R, K), with
+the weight dequantized to bf16 before a bf16 product (the JAX package's
+`qmm`, which whisper-bench -w 2 times): csrc/qmm.cu on a CUDA tensor,
+`qmm_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -189,6 +194,54 @@ def qmmt_auto(x: torch.Tensor, qw: QWeightT, dtype=torch.bfloat16) -> torch.Tens
     y = qmmt(x.reshape(-1, x.shape[-1]).float().contiguous(), qw.codes_t,
              qw.scales_t, qw.mins_t, dtype=dtype)
     return y.reshape(*lead, y.shape[-1])
+
+
+def qmm_plain(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+              dtype=torch.bfloat16) -> torch.Tensor:
+    """The plain PyTorch version of `qmm`, with the TPU kernel's rounding
+    points: x rounded to `dtype`, W = dtype(dtype(code) * dtype(scale)),
+    product summed in f32."""
+    qk = codes.shape[1] // scales.shape[1]
+    s = scales.to(dtype).float().repeat_interleave(qk, dim=1)
+    w = (codes.float() * s).to(dtype).float()
+    return torch.matmul(x.to(dtype).float(), w.T)
+
+
+def qmm(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+        dtype=torch.bfloat16) -> torch.Tensor:
+    """y[T, R] = x[T, K] @ dequant(codes, scales)[R, K]^T in f32, with x and
+    the dequantized weight rounded to bf16.  codes (R, K) int8, scales
+    (R, K/qk) f32 with qk = K // nb in {16, 32}.  A CUDA tensor launches the
+    kernel (csrc/qmm.cu), a CPU tensor takes `qmm_plain`."""
+    if x.device.type == "cpu":
+        return qmm_plain(x, codes, scales, dtype)
+    from . import _cuda
+
+    T, K = x.shape
+    R, Kc = codes.shape
+    nb = scales.shape[1] if scales.ndim == 2 else 0
+    if dtype != torch.bfloat16:
+        raise ValueError(f"qmm: compute dtype {dtype} not supported")
+    if Kc != K or nb < 1 or K % nb or K // nb not in (16, 32) or T < 1 or R < 1:
+        raise ValueError(f"qmm: bad shapes x{tuple(x.shape)} codes{tuple(codes.shape)} "
+                         f"scales{tuple(scales.shape)}")
+    xb = x.to(torch.bfloat16).contiguous()
+    _check("x", xb, torch.bfloat16, (T, K))
+    _check("codes", codes, torch.int8, (R, K))
+    _check("scales", scales, torch.float32, (R, nb))
+    if codes.data_ptr() % 16 or xb.data_ptr() % 16:
+        raise ValueError("qmm: x and codes must be 16-byte aligned")
+    out = torch.empty((T, R), dtype=torch.float32, device=x.device)
+    lib = _cuda.library("qmm")
+    P = _cuda.ptr
+    rc = lib.wtt_qmm(P(xb), P(codes), P(scales), P(out), T, K, R, K // nb,
+                     _cuda.stream_of(x))
+    _cuda.check(lib, "wtt_qmm", rc)
+    qmm.launches += 1
+    return out
+
+
+qmm.launches = 0
 
 
 def embed_lookup(qw: QWeight, tokens: torch.Tensor,

@@ -202,20 +202,22 @@ class WhisperContext:
 
     def decode_window_device(self, prompt, n_beams: int, temperature: float,
                              seek: int, seek_end: int, params,
-                             no_timestamps: bool, rng_seed: int) -> DL.WindowResult:
+                             no_timestamps: bool, rng_seed: int,
+                             strategy: str = "greedy") -> DL.WindowResult:
         """Decode a whole window with the token-loop state on the device
-        (decoding/device_loop.py); returns a WindowResult of numpy arrays."""
+        (decoding/device_loop.py), with the window strategy "greedy" or
+        "beam"; returns a WindowResult of numpy arrays."""
         if self.batcher is not None:
             raise NotImplementedError(
                 "the window batcher is not ported to whisper_tpu_torch")
         bt = _bucket(len(prompt))
-        key = (n_beams, bt, no_timestamps, params.single_segment)
+        key = (n_beams, bt, no_timestamps, params.single_segment, strategy)
         fn = self._window_fns.get(key)
         if fn is None:
             fn = self._window_fns[key] = DL.make_window_decoder(
                 self.hp, n_beams, bt, self.compute_dtype, no_timestamps,
                 params.single_segment, self.vocab.token_eot,
-                self.vocab.token_beg, kv_itype=self.kv_itype)
+                self.vocab.token_beg, kv_itype=self.kv_itype, strategy=strategy)
         base_mask, initial_mask = DL.build_masks(self.filter_tables, params)
         prompt_padded = np.zeros(bt, np.int64)
         prompt_padded[: len(prompt)] = prompt
