@@ -96,43 +96,73 @@ def bound_ms(nbytes: int, flops: float) -> tuple:
 # phase 3: kernels against their plain versions, and their times
 # ---------------------------------------------------------------------------
 
+def same_under_graph(fn) -> bool:
+    """`fn()` twice eagerly and once replayed from a CUDA graph: all three
+    results bit-identical (no order-dependent atomics in the kernel)."""
+    a, b = fn(), fn()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                  # warm-up outside the graph
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        c = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return torch.equal(a, b) and torch.equal(a, c)
+
+
 def check_qmmt(dev, Q, QM):
-    """K1 (qmmt_fused) per decode-path use, and K2 (qmmt), at turbo widths."""
+    """K1 (qmmt_fused) per decode-path use at T = 1 (a greedy step) and T = 5
+    (a beam step of five lanes), prompt passes at T = 4 and 32, and K2
+    (qmmt), at turbo widths, on planes installed as the main path installs
+    them (rows pitched to 64 columns)."""
     S = 1280
-    cases = [  # name, T, K, R, ln, bias, act, res, launches per decode step
-        ("qkv", 1, S, 3 * S, True, True, None, False, 4),
-        ("o", 1, S, S, False, True, None, True, 4),
-        ("xq", 1, S, S, True, True, None, False, 4),
-        ("xo", 1, S, S, False, True, None, True, 4),
-        ("mlp0", 1, S, 4 * S, True, True, "gelu", False, 4),
-        ("mlp1", 1, 4 * S, S, False, True, None, True, 4),
-        ("logits", 1, S, 51866, True, False, None, False, 1),
-        ("qkv_prompt4", 4, S, 3 * S, True, True, None, False, 0),
-        ("logits_prompt4", 4, S, 51866, True, False, None, False, 0),
-        ("qmmt", 1, S, 3 * S, False, False, None, False, 0),
+    uses = [  # name, K, R, ln, bias, act, res, launches per step
+        ("qkv", S, 3 * S, True, True, None, False, 4),
+        ("o", S, S, False, True, None, True, 4),
+        ("xq", S, S, True, True, None, False, 4),
+        ("xo", S, S, False, True, None, True, 4),
+        ("mlp0", S, 4 * S, True, True, "gelu", False, 4),
+        ("mlp1", 4 * S, S, False, True, None, True, 4),
+        ("logits", S, 51866, True, False, None, False, 1),
     ]
+    cases = ([(n, 1, *u) for n, *u in uses] + [(n, 5, *u) for n, *u in uses]
+             + [("qkv_prompt4", 4, S, 3 * S, True, True, None, False, 0),
+                ("logits_prompt4", 4, S, 51866, True, False, None, False, 0),
+                ("qkv_prompt32", 32, S, 3 * S, True, True, None, False, 0),
+                ("logits_prompt32", 32, S, 51866, True, False, None, False, 0),
+                ("qmmt", 1, S, 3 * S, False, False, None, False, 0)])
     g = torch.Generator().manual_seed(0)
     agg = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0, bytes=0, flops=0)
-           for k in ("qmmt_fused", "qmmt")}
+           for k in ("qmmt_fused", "qmmt", "qmmt_fused_beam")}
     for name, T, K, R, ln, bias, act, res, per_step in cases:
         w = torch.randn((R, K), generator=g).numpy()
         p = Q.unpack_to_planes(Q.quantize(w, Q.GGML_TYPE_Q5_0), Q.GGML_TYPE_Q5_0, (R, K))
-        codes = torch.from_numpy(np.ascontiguousarray(p.codes.T)).to(dev)
-        scales = torch.from_numpy(np.ascontiguousarray(p.scales.T)).to(dev)
+        qw = QM.pitch_qweight_t(p.codes.T, p.scales.T, device=dev)
+        codes, scales = qw.codes_t, qw.scales_t
         rnd = lambda *s: torch.randn(s, generator=g).to(dev)
         x = rnd(T, K)
         kw = dict(ln_w=rnd(K) if ln else None, ln_b=rnd(K) if ln else None,
                   bias=rnd(R) if bias else None, residual=rnd(T, R) if res else None,
                   act=act, dtype=torch.bfloat16)
         kernel = QM.qmmt if name == "qmmt" else QM.qmmt_fused
-        y = kernel(x, codes, scales, **({"dtype": torch.bfloat16} if name == "qmmt" else kw))
+        call = ((lambda: QM.qmmt(x, codes, scales, dtype=torch.bfloat16)) if name == "qmmt"
+                else (lambda: QM.qmmt_fused(x, codes, scales, **kw)))
+        y = call()
         ref = QM.qmmt_fused_plain(x, codes, scales, **kw)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         tol = 1e-4 * ref.abs().max().item()
-        log(f"  check {kernel.__name__}[{name}] T={T} K={K} R={R}: "
-            f"max_abs_err={err:.3e} tol={tol:.3e}")
+        ks = QM.slice_rows(K, R, 32, torch.cuda.get_device_properties(dev).multi_processor_count, T)
+        log(f"  check {kernel.__name__}[{name}] T={T} K={K} R={R} pitch={codes.stride(0)} "
+            f"grid={-(-R // QM.TILE)}x{-(-K // ks)}: max_abs_err={err:.3e} tol={tol:.3e}")
         assert math.isfinite(err) and err <= tol, name
+        if name in ("logits", "mlp1", "qkv_prompt4"):
+            assert same_under_graph(call), f"{name}: not bit-identical across calls"
+            log(f"  check {kernel.__name__}[{name}] T={T}: bit-identical over two calls "
+                f"and a CUDA-graph replay")
 
         nb = K // 32
         nbytes = (K * R + nb * R * 4 + T * K * 4 + T * R * 4
@@ -142,8 +172,9 @@ def check_qmmt(dev, Q, QM):
         copies = {}
 
         def planes(i):
+            # another copy of the pitched planes, so the rotation passes L2
             if i not in copies:
-                copies[i] = (codes.clone(), scales.clone())
+                copies[i] = QM.pitch_qweight_t(codes, scales, device=dev)[:2]
             return copies[i]
 
         def run_kernel(i):
@@ -170,90 +201,144 @@ def check_qmmt(dev, Q, QM):
         ms = device_ms(run_kernel, nbytes)
         plain_ms = device_ms(run_plain, nbytes)
         library_ms = device_ms(run_library, 2 * K * R)
+        if T in (1, 5, 32) and name != "qmmt":
+            # the product on the other route (tensor cores against CUDA-core
+            # FMAs); the wrapper takes the tensor cores from QM.MMA_MIN_T rows
+            chosen = QM.MMA_MIN_T
+            QM.MMA_MIN_T = 1 if T < chosen else T + 1
+            other_ms = device_ms(run_kernel, nbytes)
+            QM.MMA_MIN_T = chosen
+            mma = T >= chosen
+            log(f"  time  {kernel.__name__}[{name}] T={T} by product route: "
+                f"mma_ms={ms if mma else other_ms:.5f} fma_ms={other_ms if mma else ms:.5f} "
+                f"(the wrapper takes {'mma' if mma else 'fma'})")
+        if name in ("qkv", "mlp0", "mlp1", "logits"):
+            # rows of K per block, measured here; the wrapper's choice is
+            # QM.slice_rows
+            chosen, times = QM.slice_rows, {}
+            for rows in (128, 256, 512):
+                QM.slice_rows = lambda *_, rows=rows: rows
+                times[rows] = device_ms(run_kernel, nbytes)
+            QM.slice_rows = chosen
+            log(f"  time  qmmt_fused[{name}] T={T} by K-slice rows: "
+                + " ".join(f"{r}:{t:.5f}" for r, t in times.items()) + f" (the wrapper takes {ks})")
         copies.clear()
         wcopies.clear()
         b_ms, by = bound_ms(nbytes, flops)
-        log(f"  time  {kernel.__name__}[{name}]: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-            f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) "
-            f"launches_per_step={per_step}")
-        a = agg[kernel.__name__]
+        log(f"  time  {kernel.__name__}[{name}] T={T}: kernel_ms={ms:.5f} "
+            f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.5f} "
+            f"({by}) launches_per_{'beam_' if T == 5 else ''}step={per_step}")
+        key = "qmmt" if name == "qmmt" else "qmmt_fused_beam" if T == 5 else "qmmt_fused"
+        a = agg[key]
         a["err"] = max(a["err"], err)
         weight = per_step if kernel is QM.qmmt_fused else 1
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms)):
             a[k] += weight * v
         a["bytes"] += weight * nbytes
         a["flops"] += weight * flops
+    for key, unit in (("qmmt_fused", "decode step (T=1)"), ("qmmt_fused_beam", "beam step (T=5)")):
+        a = agg[key]
+        b_ms, by = bound_ms(a["bytes"], a["flops"])
+        log(f"  qmmt_fused per {unit}, 25 launches: kernel_ms={a['ms']:.5f} "
+            f"library_ms={a['library_ms']:.5f} bound_ms={b_ms:.5f} ({by}) "
+            f"kernel_not_slower_than_library={a['ms'] <= a['library_ms']}")
+    agg["qmmt_fused"]["err"] = max(agg["qmmt_fused"]["err"], agg.pop("qmmt_fused_beam")["err"])
     return agg
 
 
 def check_self_attend_q8(dev, DA):
     """K3 at turbo widths: G = 1 (a decode step) and G = 4 (a prompt
-    bucket) for every attention bucket A."""
-    L, B, H, C, D = 4, 1, 20, 448, 64
+    bucket) for every attention bucket A with one row, and B = 5 rows (a
+    beam step) at A = 448; q is the f32 head view of the fused projection,
+    as decode_step passes it.  Then the cluster size at A = 448, G = 1."""
+    L, H, C, D = 4, 20, 448, 64
+    S = H * D
     g = torch.Generator().manual_seed(1)
-    kv = torch.randint(-127, 128, (L, B, H, 2, C, D), generator=g, dtype=torch.int8).to(dev)
-    scale = (0.01 + 0.02 * torch.rand((L, B, 2, C), generator=g)).to(dev)
     agg = None
     err_max = 0.0
-    for G in (1, 4):
-        for A in (128, 256, 384, 448):
-            q = torch.randn((B, H, G, D), generator=g).to(dev)
-            vis = torch.arange(A)[None, :] < (A - G + torch.arange(G) + 1)[:, None]
-            mask = torch.where(vis, 0.0, float("-inf")).expand(B, G, A).contiguous().to(dev)
-            out = DA.self_attend_q8(kv, scale, q, mask, l=L - 1, attn_ctx=A)
-            ref = DA.self_attend_q8_plain(kv, scale, q, mask, l=L - 1, attn_ctx=A)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            tol = 2e-2 * ref.abs().max().item()
-            log(f"  check self_attend_q8[G={G},A={A}]: max_abs_err={err:.3e} tol={tol:.3e}")
-            assert math.isfinite(err) and err <= tol
-            err_max = max(err_max, err)
-            nbytes = (2 * B * H * A * D + 2 * B * A * 4 + B * H * G * D * 2
-                      + B * G * A * 4 + B * H * G * D * 4)
-            flops = 4.0 * B * H * G * A * D
-            caches = {}
+    cases = [(1, G, A) for G in (1, 4) for A in (128, 256, 384, 448)] + [(5, 1, 448)]
+    for B, G, A in cases:
+        kv = torch.randint(-127, 128, (L, B, H, 2, C, D), generator=g, dtype=torch.int8).to(dev)
+        scale = (0.01 + 0.02 * torch.rand((L, B, 2, C), generator=g)).to(dev)
+        qkv = torch.randn((B, G, 3 * S), generator=g).to(dev)
+        q = qkv[..., :S].reshape(B, G, H, D).transpose(1, 2)     # (B, H, G, D) view
+        vis = torch.arange(A)[None, :] < (A - G + torch.arange(G) + 1)[:, None]
+        mask = torch.where(vis, 0.0, float("-inf")).expand(B, G, A).contiguous().to(dev)
+        call = lambda: DA.self_attend_q8(kv, scale, q, mask, l=L - 1, attn_ctx=A)
+        out = call()
+        ref = DA.self_attend_q8_plain(kv, scale, q, mask, l=L - 1, attn_ctx=A)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = 2e-2 * ref.abs().max().item()
+        tag = f"B={B},G={G},A={A}"
+        log(f"  check self_attend_q8[{tag}]: max_abs_err={err:.3e} tol={tol:.3e} "
+            f"max_abs={ref.abs().max().item():.3e}")
+        assert math.isfinite(err) and err <= tol
+        err_max = max(err_max, err)
+        if A == 448 and G == 1:
+            assert same_under_graph(call), f"self_attend_q8[{tag}]: not bit-identical"
+        # the cache block, its scales, q (f32), the mask read once; out written
+        nbytes = (2 * B * H * A * D + 2 * B * A * 4 + B * H * G * D * 4
+                  + B * G * A * 4 + B * H * G * D * 4)
+        flops = 4.0 * B * H * G * A * D
+        caches = {}
 
-            def cache(i):
-                if i not in caches:
-                    caches[i] = (kv.clone(), scale.clone())
-                return caches[i]
+        def cache(i):
+            if i not in caches:
+                caches[i] = (kv.clone(), scale.clone())
+            return caches[i]
 
-            def run_kernel(i):
-                k, s = cache(i)
-                return lambda: DA.self_attend_q8(k, s, q, mask, l=L - 1, attn_ctx=A)
+        def run_kernel(i):
+            k, s = cache(i)
+            return lambda: DA.self_attend_q8(k, s, q, mask, l=L - 1, attn_ctx=A)
 
-            def run_plain(i):
-                k, s = cache(i)
-                return lambda: DA.self_attend_q8_plain(k, s, q, mask, l=L - 1, attn_ctx=A)
+        def run_plain(i):
+            k, s = cache(i)
+            return lambda: DA.self_attend_q8_plain(k, s, q, mask, l=L - 1, attn_ctx=A)
 
-            kd = (kv[L - 1, :, :, 0, :A].float() * scale[L - 1, :, None, 0, :A, None]
-                  ).to(torch.bfloat16)
-            vd = (kv[L - 1, :, :, 1, :A].float() * scale[L - 1, :, None, 1, :A, None]
-                  ).to(torch.bfloat16)
-            qb, mb = q.to(torch.bfloat16), mask[:, None].to(torch.bfloat16)
-            lib = {}
+        kd = (kv[L - 1, :, :, 0, :A].float() * scale[L - 1, :, None, 0, :A, None]
+              ).to(torch.bfloat16)
+        vd = (kv[L - 1, :, :, 1, :A].float() * scale[L - 1, :, None, 1, :A, None]
+              ).to(torch.bfloat16)
+        qb, mb = q.to(torch.bfloat16), mask[:, None].to(torch.bfloat16)
+        lib = {}
 
-            def run_library(i):
-                if i not in lib:
-                    lib[i] = (kd.clone(), vd.clone())
-                k, v = lib[i]
-                return lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qb, k, v, attn_mask=mb)
+        def run_library(i):
+            if i not in lib:
+                lib[i] = (kd.clone(), vd.clone())
+            k, v = lib[i]
+            return lambda: torch.nn.functional.scaled_dot_product_attention(
+                qb, k, v, attn_mask=mb)
 
-            ms = device_ms(run_kernel, nbytes)
-            plain_ms = device_ms(run_plain, nbytes)
-            library_ms = device_ms(run_library, 2 * B * H * A * D * 2)
-            caches.clear()
-            lib.clear()
-            b_ms, by = bound_ms(nbytes, flops)
-            per_step = 4 if G == 1 else 0
-            log(f"  time  self_attend_q8[G={G},A={A}]: kernel_ms={ms:.5f} "
-                f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-                f"bound_ms={b_ms:.5f} ({by}) launches_per_step={per_step}")
-            if G == 1 and A == 448:
-                # the JSON row: one decode step's 4 layers at the largest bucket
-                agg = dict(ms=4 * ms, plain_ms=4 * plain_ms, library_ms=4 * library_ms,
-                           bytes=4 * nbytes, flops=4 * flops)
+        ms = device_ms(run_kernel, nbytes)
+        plain_ms = device_ms(run_plain, nbytes)
+        library_ms = device_ms(run_library, 2 * B * H * A * D * 2)
+        b_ms, by = bound_ms(nbytes, flops)
+        per_step = 4 if G == 1 else 0
+        log(f"  time  self_attend_q8[{tag}]: kernel_ms={ms:.5f} "
+            f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+            f"bound_ms={b_ms:.5f} ({by}) launches_per_{'beam_' if B == 5 else ''}step={per_step}")
+        if A == 448 and G == 1:
+            # blocks per (row, head) cluster, measured here; the wrapper's is
+            # DA.CLUSTER
+            chosen = DA.CLUSTER
+            times = {}
+            for nc in (1, 2, 4, 8):
+                DA.CLUSTER = nc
+                times[nc] = device_ms(run_kernel, nbytes)
+            DA.CLUSTER = chosen
+            log(f"  time  self_attend_q8[{tag}] by cluster size: "
+                + " ".join(f"{nc}:{t:.5f}" for nc, t in times.items())
+                + f" (the wrapper takes {chosen})")
+        caches.clear()
+        lib.clear()
+        if B == 1 and G == 1 and A == 448:
+            # the JSON row: one decode step's 4 layers at the largest bucket
+            agg = dict(ms=4 * ms, plain_ms=4 * plain_ms, library_ms=4 * library_ms,
+                       bytes=4 * nbytes, flops=4 * flops)
+            log(f"  self_attend_q8 per decode step (4 launches, A=448): "
+                f"kernel_ms={4 * ms:.5f} library_ms={4 * library_ms:.5f} "
+                f"bound_ms={4 * b_ms:.5f} kernel_not_slower_than_library={ms <= library_ms}")
     agg["err"] = err_max
     return agg
 

@@ -11,7 +11,9 @@ margins sit far above f32 summation-order noise: tokens, timestamps and
 segments must be identical, and the cumulative logprobs agree to 1e-4.
 The fallback ladder runs on an f16 cache only: with a q8 cache the JAX
 package's host loop tiles the cache without its scales (ROADMAP queue 3),
-so its t > 0 attempts differ from the port's by design.
+so its t > 0 attempts differ from the port's by design.  The transcribe
+cases live in test_torch_beam_transcribe.py and test_torch_beam_host.py,
+which import this file's fixtures.
 """
 
 import numpy as np
@@ -102,32 +104,3 @@ def test_beam_window_matches_jax(model_path, pcm, kv_itype):
                  "failed", "completed"):
         np.testing.assert_array_equal(getattr(tr, name), getattr(jr, name), err_msg=name)
     np.testing.assert_allclose(tr.sum_logprobs, jr.sum_logprobs, rtol=0, atol=1e-4)
-
-
-@pytest.mark.parametrize("kv_itype", ["f16", "q8"])
-def test_transcribe_beam_matches_jax_at_t0(model_path, pcm, kv_itype):
-    kw = dict(temperature_inc=0.0)
-    ref = J.transcribe(J.load(model_path, use_packed_weights=True, kv_itype=kv_itype),
-                       _beam_params(J, **kw), pcm)
-    got = W.transcribe(W.load(model_path, device="cpu", use_packed_weights=True,
-                              kv_itype=kv_itype), _beam_params(W, **kw), pcm)
-    assert len(ref) >= 2 and {s.t0 // 3000 for s in ref} == {0, 1}
-    assert _summary(got) == _summary(ref)
-
-
-@pytest.mark.parametrize("kw", [
-    # an unreachable logprob threshold fails every attempt but the last: the
-    # t=0 beam attempt on the device loop, the t>0 attempts on the host loop
-    # with best_of lanes replaying the reference's mt19937 stream (advanced
-    # past the device beam attempt's skipped draws)
-    dict(logprob_thold=1.0, temperature_inc=0.5),
-    # the binary's t=0 beam: beam_size draws per decoder on the host loop
-    dict(temperature_inc=0.0, beam_sampling="reference"),
-], ids=["fallback_ladder", "reference_sampling"])
-def test_transcribe_beam_host_paths_match_jax(model_path, pcm, kw):
-    jctx = J.load(model_path, use_packed_weights=True)
-    tctx = W.load(model_path, device="cpu", use_packed_weights=True)
-    ref = J.transcribe(jctx, _beam_params(J, **kw), pcm)
-    got = W.transcribe(tctx, _beam_params(W, **kw), pcm)
-    assert ref and _summary(got) == _summary(ref)
-    assert tctx.timings.n_fail_p == jctx.timings.n_fail_p

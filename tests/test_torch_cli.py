@@ -7,7 +7,8 @@ seeded wav, at the default flags (beam 5, best-of 5), at -bs 1 (greedy), at
 files must be equal once parsed, with `systeminfo` set aside (it names the
 package) and each token's `p` within 2e-6: the writer rounds p to six
 decimals, and the two packages' f32 sums differ in order, which can move
-the sixth decimal by one.
+the sixth decimal by one.  That comparison lives in
+test_torch_cli_outputs.py, which imports this file's fixtures.
 
 whisper-bench: -w 1 and -w 2 at a small size on the CPU print the JAX
 package's line formats; without a card the commands raise.
@@ -90,27 +91,6 @@ def _assert_json_equal(a, b, where="json"):
             _assert_json_equal(x, y, f"{where}[{i}]")
     else:
         assert a == b, (where, a, b)
-
-
-@pytest.mark.parametrize("flags", [[], ["-bs", "1"], ["-nfa"], ["-ml", "16", "-sow"]],
-                         ids=["defaults_beam", "bs1_greedy", "nfa", "ml16_sow"])
-def test_cli_outputs_match_jax(files, tmp_path, global_flags, flags):
-    jbase, tbase = _run_both(files, tmp_path, flags)
-    for ext in TEXT:
-        with open(f"{jbase}.{ext}", "rb") as f:
-            want = f.read()
-        with open(f"{tbase}.{ext}", "rb") as f:
-            got = f.read()
-        assert got == want, ext
-    assert want.count(b"\n") >= 4                 # both windows gave segments
-    with open(f"{jbase}.json") as f:
-        jj = json.load(f)
-    with open(f"{tbase}.json") as f:
-        tj = json.load(f)
-    assert tj.pop("systeminfo") == "whisper_tpu_torch (PyTorch/CUDA)"
-    jj.pop("systeminfo")
-    assert all("tokens" in s for s in tj["transcription"])
-    _assert_json_equal(tj, jj)
 
 
 @pytest.mark.parametrize("flags,name", [

@@ -206,8 +206,11 @@ def test_encode_flash_route_matches_jax(model, mel, monkeypatch):
     monkeypatch.setenv("WTPU_ENC_ATTN", "flash")
     monkeypatch.setattr(JA, "use_flash", lambda t, dtype=None: True)
     jp = jax.tree.map(jnp.asarray, model.params)
+    # one jitted computation, waited for: eager ops dispatched while the
+    # interpreted kernel's callbacks run their own JAX ops can deadlock
+    encode = jax.jit(lambda p, m: JM.encode(p, m, HP, dtype=jnp.bfloat16, pad_to=512))
     with pltpu.force_tpu_interpret_mode():
-        ref = JM.encode(jp, jnp.asarray(mel), HP, dtype=jnp.bfloat16, pad_to=512)
+        ref = np.asarray(encode(jp, jnp.asarray(mel)))
     calls = _count_routes(monkeypatch)
     out = TM.encode(params_from_numpy(model.params), torch.from_numpy(mel), HP,
                     dtype=torch.bfloat16, pad_to=512)

@@ -4,7 +4,7 @@ slice on the CPU.  They need a CUDA card and skip without one (run them on
 the card with `python -m pytest tests/test_torch_gpu.py -m gpu`).
 
 Tolerances: qmmt 1e-4 of max |y| (f32 sums in another order over K up to
-5120); self_attend_q8 f32 1e-5, bf16 2e-2 (one bf16 ulp on p * s_v);
+5120; the kernel itself is bit-identical from call to call); self_attend_q8 f32 1e-5, bf16 2e-2 (one bf16 ulp on p * s_v);
 self_attention_qkv 2e-2 (bf16 output); qmm 1e-4 of max |y| (the same
 bf16-rounded operands, tensor-core f32 sums in another order over K up to
 4096); flash_self_attention 2e-2 absolute on real rows (bf16 output, and
@@ -31,25 +31,32 @@ def cuda():
     return torch.device("cuda")
 
 
-def _planes(qtype, k, r, seed):
+def _planes(qtype, k, r, seed, device):
+    # installed as the main path installs them: rows pitched to 64 columns
     w = np.random.default_rng(seed).standard_normal((r, k)).astype(np.float32)
     p = Q.unpack_to_planes(Q.quantize(w, qtype), qtype, (r, k))
-    tr = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a.T))
-    return tr(p.codes), tr(p.scales), tr(p.mins)
+    tr = lambda a: None if a is None else a.T
+    return QM.pitch_qweight_t(tr(p.codes), tr(p.scales), tr(p.mins), device=device)
 
 
-@pytest.mark.parametrize("T,K,R", [(1, 1280, 3840), (5, 5120, 1280),
-                                   (3, 256, 51866), (9, 128, 100)])
+# R not a multiple of the 64-column tile (51866, 100), K = 5120 over 20
+# slices, T around the 8-row groups
+@pytest.mark.parametrize("T,K,R", [(1, 1280, 3840), (5, 5120, 1280), (3, 256, 51866),
+                                   (9, 128, 100), (1, 1280, 51866), (8, 5120, 100),
+                                   (17, 1280, 1280)])
 @pytest.mark.parametrize("qtype", [Q.GGML_TYPE_Q5_0, Q.GGML_TYPE_Q4_1])
-def test_qmmt_fused_kernel(cuda, T, K, R, qtype):
+def test_qmmt_fused_kernel(cuda, T, K, R, qtype, monkeypatch):
     rng = np.random.default_rng(0)
-    codes, scales, mins = (None if a is None else a.to(cuda)
-                           for a in _planes(qtype, K, R, 1))
+    codes, scales, mins = _planes(qtype, K, R, 1, cuda)
+    assert codes.stride(0) % 64 == 0
     t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
     x, lw, lb, b, res = t(T, K), t(K), t(K), t(R), t(T, R)
     for kw in (dict(ln_w=lw, ln_b=lb, bias=b), dict(bias=b, residual=res),
                dict(ln_w=lw, ln_b=lb, bias=b, act="gelu"), dict(ln_w=lw, ln_b=lb)):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, min_t in ((torch.float32, QM.MMA_MIN_T), (torch.bfloat16, 1),
+                             (torch.bfloat16, T + 1)):
+            # bf16 on the tensor-core product and on the CUDA-core one
+            monkeypatch.setattr(QM, "MMA_MIN_T", min_t)
             y = QM.qmmt_fused(x, codes, scales, mins, dtype=dtype, **kw)
             ref = QM.qmmt_fused_plain(x, codes, scales, mins, dtype=dtype, **kw)
             torch.cuda.synchronize()
@@ -61,21 +68,52 @@ def test_qmmt_fused_kernel(cuda, T, K, R, qtype):
     assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-@pytest.mark.parametrize("G,A", [(1, 128), (1, 448), (4, 256), (16, 384)])
+@pytest.mark.parametrize("T,K,R", [(1, 5120, 1280), (5, 1280, 51866), (17, 1280, 3840)])
+def test_qmmt_fused_kernel_deterministic(cuda, T, K, R):
+    # the split-K fix-up sums the slices in order: two calls and a replay of
+    # a captured CUDA graph give the same bits
+    from chip_smoke import same_under_graph
+
+    codes, scales, mins = _planes(Q.GGML_TYPE_Q4_1, K, R, 2, cuda)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((T, K), generator=g).to(cuda)
+    bias = torch.randn((R,), generator=g).to(cuda)
+    assert same_under_graph(lambda: QM.qmmt_fused(x, codes, scales, mins, bias=bias,
+                                                  act="gelu"))
+
+
+def test_qmmt_kernel_refuses_unaligned_rows(cuda):
+    codes, scales, _ = _planes(Q.GGML_TYPE_Q5_0, 128, 100, 3, cuda)
+    x = torch.zeros((1, 128), device=cuda)
+    with pytest.raises(ValueError, match="aligned rows"):
+        QM.qmmt(x, codes.contiguous(), scales)
+
+
+# A not a multiple of the cluster (100), G over a chunk of 16 query rows,
+# B = 5 beam lanes; q is the strided f32 head view decode_step passes
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("G,A", [(1, 100), (1, 448), (4, 256), (16, 384), (16, 100),
+                                 (20, 100)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-def test_self_attend_q8_kernel(cuda, G, A, dtype, tol):
-    L, B, H, C, D = 4, 2, 20, 448, 64
+def test_self_attend_q8_kernel(cuda, B, G, A, dtype, tol):
+    L, H, C, D = 4, 20, 448, 64
     g = torch.Generator().manual_seed(0)
     kv = torch.randint(-127, 128, (L, B, H, 2, C, D), generator=g, dtype=torch.int8)
     scale = 0.01 + 0.02 * torch.rand((L, B, 2, C), generator=g)
-    q = torch.randn((B, H, G, D), generator=g)
+    qkv = torch.randn((B, G, 3 * H * D), generator=g)
     vis = torch.arange(A)[None, :] < (A - G + torch.arange(G) + 1)[:, None]
     mask = torch.where(vis, 0.0, float("-inf")).expand(B, G, A).contiguous()
-    kv, scale, q, mask = (a.to(cuda) for a in (kv, scale, q, mask))
+    kv, scale, qkv, mask = (a.to(cuda) for a in (kv, scale, qkv, mask))
+    q = qkv[..., :H * D].reshape(B, G, H, D).transpose(1, 2)
     for l in (0, L - 1):
+        n = DA.self_attend_q8.launches
         out = DA.self_attend_q8(kv, scale, q, mask, l=l, attn_ctx=A, dtype=dtype)
+        assert DA.self_attend_q8.launches == n + 1
         ref = DA.self_attend_q8_plain(kv, scale, q, mask, l=l, attn_ctx=A, dtype=dtype)
+        torch.cuda.synchronize()
         assert (out - ref).abs().max() <= tol * ref.abs().max()
+        again = DA.self_attend_q8(kv, scale, q, mask, l=l, attn_ctx=A, dtype=dtype)
+        assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("T,true_len,n_head,d", [(1536, 1500, 20, 64),

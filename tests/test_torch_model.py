@@ -106,6 +106,8 @@ def _decode_pair(model, encoded, packed, kv_itype):
     assert jctx.use_packed_weights == tctx.use_packed_weights == packed
     jparams = jctx.params
     tparams = tctx.params
+    if packed:   # the packed planes are the kernel's pitched install
+        assert tparams["dec"]["tok_embd_t"].codes_t.stride(0) % 64 == 0
     jk, jv = JM.compute_cross_kv(jparams, jnp.asarray(enc_ref), HP,
                                  dtype=jnp.float32)
     tk, tv = params_from_numpy(np.asarray(jk)), params_from_numpy(np.asarray(jv))
@@ -147,6 +149,15 @@ def test_packed_planes_match_jax_context(model):
     tctx = TCtx(model, device="cpu", use_packed_weights=True)
     ref = params_from_numpy(jax.tree.map(np.asarray, jctx.params))
     jd, td = ref["dec"], tctx.params["dec"]
+    # both builders of a QWeightT (convert.py for `ref`, the context's install
+    # for `td`) pitch the transposed planes' rows to 64 columns; torch.equal
+    # then compares the first R columns
+    for planes in [*jd["blocks_packed"][0].values(), jd["tok_embd_t"],
+                   *td["blocks_packed"][0].values(), td["tok_embd_t"]]:
+        for p in planes:
+            if p is not None:
+                assert p.stride(1) == 1 and p.stride(0) % 64 == 0
+                assert p.stride(0) - p.shape[1] < 64
     assert set(jd["blocks"]) == set(td["blocks"])
     assert len(jd["blocks_packed"]) == len(td["blocks_packed"]) == HP.n_text_layer
     for jl, tl in zip(jd["blocks_packed"], td["blocks_packed"]):

@@ -35,11 +35,12 @@ CASES = {
 }
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "pitched"])
 @pytest.mark.parametrize("qtype", [Q.GGML_TYPE_Q5_0, Q.GGML_TYPE_Q4_1],
                          ids=["q5_0", "q4_1"])
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_qmmt_fused_plain_matches_pallas(case, qtype, dtype):
+def test_qmmt_fused_plain_matches_pallas(case, qtype, dtype, layout):
     ln, bias, act, res = CASES[case]
     rng = np.random.default_rng(7)
     codes, scales, mins = _planes(qtype, K, R, 11)
@@ -56,8 +57,13 @@ def test_qmmt_fused_plain_matches_pallas(case, qtype, dtype):
         jo(x), jo(codes), jo(scales), jo(mins), ln_w=jo(lw), ln_b=jo(lb),
         bias=jo(b), residual=jo(r), act=act, block_r=256, dtype=jd,
         interpret=True))
+    planes = (to(codes), to(scales), to(mins))
+    if layout == "pitched":
+        # the install of runtime/context.py: rows padded to 64 columns
+        planes = TQMM.pitch_qweight_t(codes, scales, mins)
+        assert planes.codes_t.stride(0) == 128 and planes.shape == (R, K)
     before = TQMM.qmmt_fused.launches
-    y = TQMM.qmmt_fused(to(x), to(codes), to(scales), to(mins), ln_w=to(lw),
+    y = TQMM.qmmt_fused(to(x), *planes, ln_w=to(lw),
                         ln_b=to(lb), bias=to(b), residual=to(r), act=act,
                         dtype=td).numpy()
     assert TQMM.qmmt_fused.launches == before   # the CPU takes the plain path
@@ -78,6 +84,43 @@ def test_qmmt_plain_matches_pallas(qtype):
     y = TQMM.qmmt(to(x), to(codes), to(scales), to(mins), dtype=torch.float32)
     np.testing.assert_allclose(y.numpy(), y_ref, rtol=0,
                                atol=1e-5 * np.abs(y_ref).max())
+
+
+def test_pitch_qweight_t_layout():
+    codes, scales, mins = _planes(Q.GGML_TYPE_Q4_1, K, 100, 3)
+    qw = TQMM.pitch_qweight_t(codes, scales, mins)
+    assert qw.shape == (100, K)
+    for plane, ref in zip(qw, (codes, scales, mins)):
+        assert plane.stride() == (128, 1) and plane.dtype == (
+            torch.int8 if ref.dtype == np.int8 else torch.float32)
+        np.testing.assert_array_equal(plane.numpy(), ref)
+        # the padding columns are zeros
+        full = plane.as_strided((plane.shape[0], 128), (128, 1))
+        assert not full[:, 100:].any()
+
+
+@pytest.mark.parametrize("K_,R_,qk,ks", [
+    (1280, 3840, 32, 256),    # qkv: 60 tiles x 5 slices
+    (1280, 1280, 32, 128),    # o, xq, xo: 20 x 10
+    (1280, 5120, 32, 256),    # mlp0: 80 x 5
+    (5120, 1280, 32, 256),    # mlp1: 20 x 20
+    (1280, 51866, 32, 256),   # logits head: 811 x 5
+    (128, 100, 32, 128),      # one slice
+    (512, 129, 16, 64)])
+def test_slice_rows(K_, R_, qk, ks):
+    # csrc/qmmt.cu's K-slice per block on a 132-SM card, at a beam step
+    assert TQMM.slice_rows(K_, R_, qk, 132, 5) == ks
+
+
+@pytest.mark.parametrize("K_,R_,ks", [
+    (1280, 3840, 128),        # qkv: 60 tiles x 10 slices
+    (1280, 1280, 128),        # o, xq, xo: 20 x 10
+    (1280, 5120, 128),        # mlp0: 80 x 10
+    (5120, 1280, 128),        # mlp1: 20 x 40
+    (1280, 51866, 256)])      # logits head: 811 x 5
+def test_slice_rows_one_row(K_, R_, ks):
+    # a greedy step (T = 1) takes the smaller slices up to four blocks per SM
+    assert TQMM.slice_rows(K_, R_, 32, 132, 1) == ks
 
 
 def test_qmmt_fused_auto_leading_dims():

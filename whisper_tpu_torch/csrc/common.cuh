@@ -31,6 +31,38 @@ __device__ __forceinline__ float wtt_warp_max(float v) {
   return v;
 }
 
+// two floats as a bf16x2 register, `lo` in the low half (the first element
+// of an mma fragment pair)
+__device__ __forceinline__ uint32_t wtt_pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a @ b on the tensor cores: m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void wtt_mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Asynchronous copies into shared memory (cp.async; commit and wait at the
+// call site).  wtt_cp_async16 bypasses L1 and copies `bytes` (16, or 0 to
+// fill the 16 with zeros); wtt_cp_async_ca copies N (4, 8 or 16) bytes
+// through L1, for data that other blocks of the SM read too.
+__device__ __forceinline__ void wtt_cp_async16(void* smem, const void* gmem, int bytes = 16) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes));
+}
+
+template <int N>
+__device__ __forceinline__ void wtt_cp_async_ca(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N));
+}
+
 // Block-wide reduction over blockDim.x threads (a multiple of 32, at most
 // 1024); `scratch` holds 32 floats of shared memory.  Every thread gets the
 // result.

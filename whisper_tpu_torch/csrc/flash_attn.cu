@@ -37,19 +37,6 @@ constexpr int BQ = 64;   // query rows per block (16 per warp)
 constexpr int BKV = 64;  // key rows per tile
 constexpr float kMask = -0.7f * 3.4028234663852886e38f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void load2(const float* p, float* f) {
   const float2 v = *reinterpret_cast<const float2*>(p);
   f[0] = v.x; f[1] = v.y;
@@ -99,10 +86,10 @@ flash_attn_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
     float a[2] = {0.f, 0.f}, b[2] = {0.f, 0.f}, c[2] = {0.f, 0.f}, e[2] = {0.f, 0.f};
     if (r0 < T) { load2(qh + r0 * st.q_t + d0, a); load2(qh + r0 * st.q_t + d0 + 8, c); }
     if (r1 < T) { load2(qh + r1 * st.q_t + d0, b); load2(qh + r1 * st.q_t + d0 + 8, e); }
-    qf[kk][0] = pack_bf16(a[0], a[1]);
-    qf[kk][1] = pack_bf16(b[0], b[1]);
-    qf[kk][2] = pack_bf16(c[0], c[1]);
-    qf[kk][3] = pack_bf16(e[0], e[1]);
+    qf[kk][0] = wtt_pack_bf16(a[0], a[1]);
+    qf[kk][1] = wtt_pack_bf16(b[0], b[1]);
+    qf[kk][2] = wtt_pack_bf16(c[0], c[1]);
+    qf[kk][3] = wtt_pack_bf16(e[0], e[1]);
   }
   const bool real0 = r0 < n_real, real1 = r1 < n_real;
 
@@ -119,7 +106,7 @@ flash_attn_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
       const int key = i / (D / 4), d = (i % (D / 4)) * 4;  // K: d fastest
       float f[4] = {0.f, 0.f, 0.f, 0.f};
       if (kv0 + key < T) load4(kh + (kv0 + key) * st.k_t + d, f);
-      uint2 w = make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+      uint2 w = make_uint2(wtt_pack_bf16(f[0], f[1]), wtt_pack_bf16(f[2], f[3]));
       *reinterpret_cast<uint2*>(&Ks[key][d]) = w;
     }
     for (int i = tid; i < BKV * D / 4; i += kThreads) {
@@ -143,7 +130,7 @@ flash_attn_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
         uint32_t b[2];
         b[0] = *reinterpret_cast<const uint32_t*>(&Ks[j * 8 + g][kk * 16 + tg * 2]);
         b[1] = *reinterpret_cast<const uint32_t*>(&Ks[j * 8 + g][kk * 16 + tg * 2 + 8]);
-        mma_bf16(s[j], qf[kk], b);
+        wtt_mma_bf16(s[j], qf[kk], b);
       }
 
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -190,16 +177,16 @@ flash_attn_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      a[0] = wtt_pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = wtt_pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = wtt_pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = wtt_pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int j = 0; j < ND; ++j) {
         uint32_t b[2];
         b[0] = *reinterpret_cast<const uint32_t*>(&Vt[j * 8 + g][kk * 16 + tg * 2]);
         b[1] = *reinterpret_cast<const uint32_t*>(&Vt[j * 8 + g][kk * 16 + tg * 2 + 8]);
-        mma_bf16(acc[j], a, b);
+        wtt_mma_bf16(acc[j], a, b);
       }
     }
   }

@@ -34,19 +34,6 @@ constexpr int LDS = BK + 8;  // padded row (bf16): conflict-free fragment loads
 constexpr int WM = 64, WN = 32;  // warp tile: 2 x 4 warps
 constexpr int MT = WM / 16, NT = WN / 8;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 struct Slab {
   uint4 x[2];      // 2 x 8 bf16 of x
   uint4 codes;     // 16 int8 codes of one weight row
@@ -91,7 +78,7 @@ __device__ __forceinline__ void store_slab(const Slab& s, __nv_bfloat16* As, __n
   uint32_t w[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    w[i] = pack_bf16((float)q[2 * i] * s.scale, (float)q[2 * i + 1] * s.scale);
+    w[i] = wtt_pack_bf16((float)q[2 * i] * s.scale, (float)q[2 * i + 1] * s.scale);
   uint4* dst = reinterpret_cast<uint4*>(Bs + r * LDS + c);
   dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
   dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
@@ -149,7 +136,7 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
+        for (int j = 0; j < NT; ++j) wtt_mma_bf16(acc[i][j], af[i], bf[j]);
     }
     if (kt + 1 < n_slabs) store_slab(s, As[cur ^ 1], Bs[cur ^ 1]);
     __syncthreads();

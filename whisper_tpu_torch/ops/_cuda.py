@@ -106,8 +106,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "qmmt": {"wtt_qmmt": [_P] * 9 + [_I] * 6 + [_F, _P]},
-    "decode_attn": {"wtt_self_attend_q8": [_P, _P, _P, _I, _P, _P] + [_I] * 8 + [_P]},
+    "qmmt": {"wtt_qmmt": [_P] * 11 + [_I] * 10 + [_F, _P]},
+    "decode_attn": {"wtt_self_attend_q8": [_P, _P, _P, _I] + [_L] * 3 + [_P, _P]
+                    + [_I] * 9 + [_P]},
     "enc_attn": {"wtt_self_attention_qkv": [_P, _P] + [_I] * 4 + [_P]},
     "qmm": {"wtt_qmm": [_P] * 4 + [_I] * 4 + [_P]},
     "flash_attn": {"wtt_flash_attn": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P]},

@@ -16,6 +16,11 @@ import os
 import torch
 
 
+# blocks per (row, head) cluster of csrc/decode_attn.cu, each taking
+# ceil(A / CLUSTER) cache cells; chip_smoke.py times 1, 2, 4 and 8
+CLUSTER = 8
+
+
 def use_kernel() -> bool:
     """Route decode_step's q8 self-attention through this kernel?
 
@@ -54,7 +59,9 @@ def self_attend_q8(kv: torch.Tensor, scale: torch.Tensor, qh: torch.Tensor,
 
     kv    (L, B, H, 2, C, d) int8   — KVCache8.kv (K at [..., 0, :, :])
     scale (L, B, 2, C) f32          — KVCache8.scale
-    qh    (B, H, G, d)              — this step's queries
+    qh    (B, H, G, d)              — this step's queries (f32 or bf16; on
+                                      the card any strides with a unit last
+                                      one, rounded to `dtype` in the kernel)
     mask  (B, G, A) f32             — additive, truncated to A = attn_ctx
     Returns (B, H, G, d) f32.
     """
@@ -71,21 +78,25 @@ def self_attend_q8(kv: torch.Tensor, scale: torch.Tensor, qh: torch.Tensor,
 
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"self_attend_q8: compute dtype {dtype} not supported")
-    if two != 2 or d % 16 or 128 % d or not (1 <= A <= C) or not (0 <= l < L):
+    if two != 2 or d not in (16, 32, 64, 128) or not (1 <= A <= C) \
+            or not (0 <= l < L) or CLUSTER not in (1, 2, 4, 8):
         raise ValueError(f"self_attend_q8: bad shapes kv{tuple(kv.shape)} "
-                         f"A={A} l={l}")
-    q = qh.to(dtype).contiguous()
+                         f"A={A} l={l} cluster={CLUSTER}")
+    if qh.device != kv.device or qh.dtype not in (torch.float32, torch.bfloat16) \
+            or tuple(qh.shape) != (B, H, G, d) or qh.stride(-1) != 1:
+        raise ValueError(f"self_attend_q8: qh wants (B, H, G, d) = {(B, H, G, d)} "
+                         f"f32 or bf16 with unit last stride on {kv.device}, got "
+                         f"{qh.dtype} {tuple(qh.shape)} strides {qh.stride()}")
     _check("kv", kv, torch.int8, (L, B, H, 2, C, d))
     _check("scale", scale, torch.float32, (L, B, 2, C))
-    _check("qh", q, dtype, (B, H, G, d))
     _check("mask", mask, torch.float32, (B, G, A))
     out = torch.empty((B, H, G, d), dtype=torch.float32, device=kv.device)
     lib = _cuda.library("decode_attn")
     P = _cuda.ptr
-    rc = lib.wtt_self_attend_q8(P(kv), P(scale), P(q),
-                                int(dtype == torch.bfloat16), P(mask), P(out),
-                                B, H, G, C, d, A, l,
-                                int(dtype == torch.bfloat16),
+    rc = lib.wtt_self_attend_q8(P(kv), P(scale), P(qh),
+                                int(qh.dtype == torch.bfloat16), *qh.stride()[:3],
+                                P(mask), P(out), B, H, G, C, d, A, l,
+                                int(dtype == torch.bfloat16), CLUSTER,
                                 _cuda.stream_of(kv))
     _cuda.check(lib, "wtt_self_attend_q8", rc)
     self_attend_q8.launches += 1

@@ -6,7 +6,9 @@ per-block scales (and mins for affine formats), so the decode matmuls read
 1.125 B per weight instead of bf16's 2.
 
   x:        (T, K)    activations
-  codes_t:  (K, R)    int8 codes, TRANSPOSED (contiguous along the output R)
+  codes_t:  (K, R)    int8 codes, TRANSPOSED (contiguous along the output R;
+                      installed with rows pitched to 64 columns, see
+                      `pitch_qweight_t`)
   scales_t: (K/qk, R) f32 per-block scales (qk = 32, 16 for NVFP4)
   mins_t:   (K/qk, R) f32 per-block offsets of affine formats, or None
 
@@ -23,8 +25,10 @@ the weight dequantized to bf16 before a bf16 product (the JAX package's
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 QK = 32  # block size of the *_0 formats (ggml-common.h:180)
@@ -55,6 +59,32 @@ class QWeightT(NamedTuple):
     def shape(self) -> Tuple[int, int]:
         # logical (R, K), matching QWeight's convention
         return (self.codes_t.shape[1], self.codes_t.shape[0])
+
+
+PITCH = 64  # columns: rows of an installed transposed plane are padded to this
+
+
+def pitch_plane(a, dtype, device="cpu") -> Optional[torch.Tensor]:
+    """A (K, R) plane (numpy array or tensor) installed on `device` as the
+    (K, R) view of a zero-padded (K, R_pad) buffer, R_pad the next multiple
+    of PITCH, so every row starts 16-byte aligned for csrc/qmmt.cu."""
+    if a is None:
+        return None
+    if not torch.is_tensor(a):
+        a = torch.from_numpy(np.array(a, order="C"))
+    K, R = a.shape
+    buf = torch.zeros((K, -(-R // PITCH) * PITCH), dtype=dtype, device=device)
+    buf[:, :R] = a
+    return buf[:, :R]
+
+
+def pitch_qweight_t(codes_t, scales_t, mins_t=None, device="cpu") -> QWeightT:
+    """The transposed planes (K, R) and (K/qk, R) as `QWeightT` on `device`,
+    each row pitched to a multiple of PITCH columns (`pitch_plane`); the
+    install that runtime/context.py and models/whisper/convert.py share."""
+    return QWeightT(pitch_plane(codes_t, torch.int8, device),
+                    pitch_plane(scales_t, torch.float32, device),
+                    pitch_plane(mins_t, torch.float32, device))
 
 
 def _gelu(y: torch.Tensor) -> torch.Tensor:
@@ -99,6 +129,55 @@ def _check(name, t, dtype, shape):
             f"(contiguous={t.is_contiguous()})")
 
 
+def _check_plane(name, t, dtype, shape):
+    """A transposed plane: rows contiguous, each starting 16-byte aligned
+    (the layout `pitch_qweight_t` installs)."""
+    if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != shape \
+            or t.stride(1) != 1 or t.stride(0) < shape[1] \
+            or (t.stride(0) * t.element_size()) % 16 or t.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: want a {dtype} CUDA plane of shape {shape} with 16-byte "
+            f"aligned rows (ops/qmm.py pitch_qweight_t), got {t.dtype} "
+            f"{tuple(t.shape)} strides {t.stride()} on {t.device}")
+
+
+TILE = 64            # output columns per block of csrc/qmmt.cu
+# from this many activation rows on (a whole mma.sync N of 8), a bf16 product
+# runs on the tensor cores instead of CUDA-core FMAs; chip_smoke.py times
+# both routes at T = 1, 5 and 32
+MMA_MIN_T = 8
+_N_COUNTERS = 1 << 16
+_COUNTERS = {}       # device -> per-tile arrival counters, all 0 between launches
+
+
+def slice_rows(K: int, R: int, qk: int, n_sm: int, T: int) -> int:
+    """Rows of K per block of csrc/qmmt.cu for T activation rows: 8
+    qk-blocks, or 4 where 8 would leave fewer than two blocks per SM (four
+    at T = 1, where a block's products are short); chip_smoke.py times
+    128, 256 and 512 rows at T = 1 and 5."""
+    tiles = -(-R // TILE)
+    ks = 8 * qk
+    if tiles * -(-K // ks) < (4 if T == 1 else 2) * n_sm:
+        ks = 4 * qk
+    return min(ks, K)
+
+
+def _use_mma(T: int, qk: int, dtype) -> bool:
+    """The tensor-core product takes bf16 rows and whole 16-row k-steps
+    inside each qk-block."""
+    return dtype == torch.bfloat16 and qk % 16 == 0 and T >= MMA_MIN_T
+
+
+def _counters(device) -> torch.Tensor:
+    c = _COUNTERS.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("qmmt: launch once before capturing a CUDA graph")
+        c = _COUNTERS[device] = torch.zeros(_N_COUNTERS, dtype=torch.int32,
+                                            device=device)
+    return c
+
+
 def _launch_qmmt(x, codes_t, scales_t, mins_t, ln_w, ln_b, bias, residual,
                  act, eps, dtype) -> torch.Tensor:
     from . import _cuda
@@ -110,17 +189,22 @@ def _launch_qmmt(x, codes_t, scales_t, mins_t, ln_w, ln_b, bias, residual,
     T, K = x.shape
     Kc, R = codes_t.shape
     nb = scales_t.shape[0]
-    if T < 1 or Kc != K or nb < 1 or K % nb or (K // nb) % 4:
+    if T < 1 or R < 1 or Kc != K or nb < 1 or K % nb or K // nb not in (8, 16, 32):
         raise ValueError(f"qmmt: bad shapes x{tuple(x.shape)} "
                          f"codes_t{tuple(codes_t.shape)} "
                          f"scales_t{tuple(scales_t.shape)}")
-    if min(T, 8) * K * 4 > 160 * 1024:
+    if ln_w is not None and min(T, 8) * K * 4 > 160 * 1024:
         raise ValueError(f"qmmt: K={K} too wide for the staged rows")
+    qk = K // nb
     _check("x", x, torch.float32, (T, K))
-    _check("codes_t", codes_t, torch.int8, (K, R))
-    _check("scales_t", scales_t, torch.float32, (nb, R))
+    if x.data_ptr() % 16:
+        raise ValueError("qmmt: x must be 16-byte aligned")
+    _check_plane("codes_t", codes_t, torch.int8, (K, R))
+    _check_plane("scales_t", scales_t, torch.float32, (nb, R))
     if mins_t is not None:
-        _check("mins_t", mins_t, torch.float32, (nb, R))
+        _check_plane("mins_t", mins_t, torch.float32, (nb, R))
+        if mins_t.stride(0) != scales_t.stride(0):
+            raise ValueError("qmmt: mins_t and scales_t need the same pitch")
     if ln_w is not None:
         _check("ln_w", ln_w, torch.float32, (K,))
         _check("ln_b", ln_b, torch.float32, (K,))
@@ -128,15 +212,29 @@ def _launch_qmmt(x, codes_t, scales_t, mins_t, ln_w, ln_b, bias, residual,
         _check("bias", bias, torch.float32, (R,))
     if residual is not None:
         _check("residual", residual, torch.float32, (T, R))
+    tiles = -(-R // TILE)
+    if tiles > _N_COUNTERS:
+        raise ValueError(f"qmmt: R={R} has more tiles than counters")
+    ks = slice_rows(K, R, qk, _n_sm(x.device), T)
+    slices = -(-K // ks)
+    ws = (torch.empty(tiles * slices * T * TILE, dtype=torch.float32,
+                      device=x.device) if slices > 1 else None)
     out = torch.empty((T, R), dtype=torch.float32, device=x.device)
     lib = _cuda.library("qmmt")
     P = _cuda.ptr
     rc = lib.wtt_qmmt(P(x), P(codes_t), P(scales_t), P(mins_t), P(ln_w),
-                      P(ln_b), P(bias), P(residual), P(out), T, K, R, K // nb,
-                      int(dtype == torch.bfloat16), int(act == "gelu"),
-                      float(eps), _cuda.stream_of(x))
+                      P(ln_b), P(bias), P(residual), P(out), P(ws),
+                      P(_counters(x.device)), T, K, R, codes_t.stride(0),
+                      scales_t.stride(0), qk, ks, int(dtype == torch.bfloat16),
+                      int(act == "gelu"), int(_use_mma(T, qk, dtype)), float(eps),
+                      _cuda.stream_of(x))
     _cuda.check(lib, "wtt_qmmt", rc)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def qmmt_fused(x, codes_t, scales_t, mins_t=None, ln_w=None, ln_b=None,

@@ -22,7 +22,7 @@ from ..decoding.logits import LogitFilterTables
 from ..models.whisper import model as M
 from ..models.whisper.convert import params_from_numpy
 from ..models.whisper.load import WhisperModel, build_qweight_overlay, load_model
-from ..ops.qmm import QWeight, QWeightT
+from ..ops.qmm import QWeight, pitch_qweight_t
 from .timings import Timings
 
 # token-count buckets for prompt decodes (steps are always 1)
@@ -123,17 +123,17 @@ class WhisperContext:
     def _install_packed(self, overlay) -> None:
         dev = self.device
 
-        def t(a, dt):
-            return (None if a is None else
-                    torch.from_numpy(np.ascontiguousarray(a.T)).to(dev, dt))
+        def planes_t(codes, scales, mins):
+            # transposed (K, R) planes, rows pitched for the streaming kernel
+            tr = lambda a: None if a is None else a.T
+            return pitch_qweight_t(tr(codes), tr(scales), tr(mins), device=dev)
 
         n_layers = self.hp.n_text_layer
         blocks_packed = [dict() for _ in range(n_layers)]
         for key, (codes, scales, mins) in overlay["blocks"].items():
             for l in range(n_layers):
-                blocks_packed[l][key] = QWeightT(
-                    t(codes[l], torch.int8), t(scales[l], torch.float32),
-                    t(None if mins is None else mins[l], torch.float32))
+                blocks_packed[l][key] = planes_t(
+                    codes[l], scales[l], None if mins is None else mins[l])
             del self.params["dec"]["blocks"][key]
         if any(blocks_packed[0]):
             self.params["dec"]["blocks_packed"] = blocks_packed
@@ -148,9 +148,7 @@ class WhisperContext:
                 d(codes, torch.int8), d(scales, torch.float32),
                 d(mins, torch.float32))
             # transposed copy for the logits head's streaming kernel
-            self.params["dec"]["tok_embd_t"] = QWeightT(
-                t(codes, torch.int8), t(scales, torch.float32),
-                t(mins, torch.float32))
+            self.params["dec"]["tok_embd_t"] = planes_t(codes, scales, mins)
 
     @staticmethod
     def from_file(path: str, **kw) -> "WhisperContext":

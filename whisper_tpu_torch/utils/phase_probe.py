@@ -1,0 +1,162 @@
+"""Where a launch of the decode matmul (csrc/qmmt.cu) and of the decode
+attention (csrc/decode_attn.cu) spends its time, block by block.
+
+    python -m whisper_tpu_torch.utils.phase_probe            # on the card
+    PROBE=fixup python -m whisper_tpu_torch.utils.phase_probe  # K1's fix-up
+
+It copies each source into whisper_tpu_torch/build/, stamps thread 0 of
+every block with clock64() and %globaltimer at fixed points of the kernel
+(each point named by a line of the source it precedes or follows, so a
+changed source fails loudly here), builds the copy with the package's nvcc
+flags, and runs it once after three warm-up calls at large-v3-turbo
+shapes.  For each launch it prints the spread of the blocks' start times
+and, per point, the microseconds since the block started (p50, p90, max;
+clock64 read at 1.755 GHz).  The kernels of the package are not changed.
+"""
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+from ..formats import quants as Q
+from ..ops import _cuda
+from ..ops import decode_attn as DA
+from ..ops import qmm as QM
+
+CS = str(_cuda.CSRC)
+
+PH = ('if (threadIdx.x == 0 && g_stamps) {{ unsigned long long t_ = clock64(), g_; '
+      'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_)); '
+      'size_t o_ = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 16; '
+      'g_stamps[o_ + {i}] = t_; g_stamps[o_ + 8 + {i}] = g_; }}\n')
+HEAD = ('#include "common.cuh"\n__device__ unsigned long long* g_stamps;\n'
+        'extern "C" int wtt_set_stamps(void* p) { return (int)cudaMemcpyToSymbol('
+        'g_stamps, &p, sizeof(p)); }\n')
+
+
+def patch(src, points):
+    s = src.replace('#include "common.cuh"\n', HEAD, 1)
+    for i, (anchor, after) in enumerate(points):
+        assert anchor in s, anchor
+        s = s.replace(anchor, anchor + PH.format(i=i) if after else PH.format(i=i) + anchor, 1)
+    return s
+
+
+K1 = [
+    ("  const int col_base = tile * BC;\n", True),
+    ("  float lw[kPerThread], lb[kPerThread];\n", False),
+    ("#pragma unroll\n    for (int u = 0; u < kPerThread; ++u) {\n      const int kk = tid + u * kThreads;\n      if (kk < kn) {", False),
+    ('      asm volatile("cp.async.wait_group 1;\\n" ::);\n      __syncthreads();\n', True),
+    ("    for (; b < nbs; b += kWarps) product(b);\n", True),
+    ("  if (n_slices == 1) return;\n", False),
+    ("  if (!is_last) return;\n", True),
+    ("  if (tid == 0) a.counters[tile] = 0;\n", False),
+]
+K1F = [
+    ("  const int col_base = tile * BC;\n", True),
+    ("  float* fx = reinterpret_cast<float*>(body);\n", False),
+    ("    __syncthreads();\n    for (int i = tid; i < nr * BC; i += kThreads) {", False),
+    ("            epilogue(a, ep, y, r0 + i / BC, i % BC, col);\n    }\n", True),
+    ("  if (tid == 0) a.counters[tile] = 0;\n", False),
+    ("  if (!is_last) return;\n", True),
+]
+K3 = [
+    ("  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n", True),
+    ('    asm volatile("cp.async.wait_all;\\n" ::);\n    __syncthreads();\n', True),
+    ("    // this block's max m_r and sum l_r = sum(exp(s - m_r)) per query row,\n", False),
+    ("      const float2 mine = lane < NC ? ml[lane * GC + g] : make_float2(-INFINITY, 0.f);\n", False),
+    ("    // P V over this block's cells", False),
+    ("    // this block's P V, warps summed in order", False),
+    ("    if (rank == 0) {\n      for (int i = tid; i < gc * D; i += kThreads) {", False),
+    ("  }\n}\n\ntemplate <int D, int GC>", False),
+]
+
+
+def build(name, points):
+    with open(os.path.join(CS, name + ".cu")) as f:
+        src = f.read()
+    _cuda.BUILD.mkdir(parents=True, exist_ok=True)
+    out = str(_cuda.BUILD / f"{name}_probe.cu")
+    with open(out, "w") as f:
+        f.write(patch(src, points))
+    so = str(_cuda.BUILD / f"{name}_probe.so")
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS[:-2], "-I", CS, "-o", so, out], check=True)
+    lib = _cuda._bind(name, ctypes.CDLL(so))
+    lib.wtt_set_stamps.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def report(tag, st, nblk):
+    st = st[:nblk].astype(np.int64)
+    clk, gt = st[:, :8], st[:, 8:]
+    ok = clk[:, 0] > 0
+    clk, gt = clk[ok], gt[ok]
+    g0 = gt[:, 0].min()
+    starts = (gt[:, 0] - g0) / 1e3
+    print(f"{tag}: blocks={ok.sum()} start spread us: p50={np.median(starts):.2f} "
+          f"max={starts.max():.2f}; last stamp us={(gt.max() - g0) / 1e3:.2f}")
+    for i in range(1, 8):
+        have = clk[:, i] > 0
+        if have.any():
+            d = (clk[have, i] - clk[have, 0]) / 1.755e3
+            print(f"   phase {i}: n={have.sum()} us since block start p50={np.median(d):.2f} "
+                  f"p90={np.percentile(d, 90):.2f} max={d.max():.2f}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_probe: no CUDA card")
+    dev = torch.device("cuda")
+    buf = torch.zeros(16 * 8192, dtype=torch.int64, device=dev)
+    lib1 = build("qmmt", K1F if os.environ.get("PROBE") == "fixup" else K1)
+    lib1.wtt_set_stamps(buf.data_ptr())
+    _cuda._LIBS["qmmt"] = lib1
+    g = torch.Generator().manual_seed(0)
+    for name, T, K, R, ln, res in (("o", 1, 1280, 1280, False, True), ("xq", 1, 1280, 1280, True, False),
+                                   ("mlp1", 1, 5120, 1280, False, True),
+                                   ("logits", 1, 1280, 51866, True, False),
+                                   ("o", 5, 1280, 1280, False, True),
+                                   ("logits", 5, 1280, 51866, True, False)):
+        w = torch.randn((R, K), generator=g).numpy()
+        p = Q.unpack_to_planes(Q.quantize(w, Q.GGML_TYPE_Q5_0), Q.GGML_TYPE_Q5_0, (R, K))
+        qw = QM.pitch_qweight_t(p.codes.T, p.scales.T, device=dev)
+        x = torch.randn((T, K), generator=g).to(dev)
+        kw = dict(ln_w=torch.ones(K, device=dev), ln_b=torch.zeros(K, device=dev)) if ln else {}
+        if res:
+            kw["residual"] = torch.randn((T, R), generator=g).to(dev)
+        for min_t in ((QM.MMA_MIN_T, T + 1) if T >= QM.MMA_MIN_T else (QM.MMA_MIN_T,)):
+            chosen, QM.MMA_MIN_T = QM.MMA_MIN_T, min_t
+            for _ in range(3):
+                QM.qmmt_fused(x, qw.codes_t, qw.scales_t, bias=torch.zeros(R, device=dev), **kw)
+            torch.cuda.synchronize()
+            buf.zero_()
+            QM.qmmt_fused(x, qw.codes_t, qw.scales_t, bias=torch.zeros(R, device=dev), **kw)
+            torch.cuda.synchronize()
+            QM.MMA_MIN_T = chosen
+            ks = QM.slice_rows(K, R, 32, 132, T)
+            nblk = -(-R // 64) * -(-K // ks)
+            route = "mma" if T >= min_t else "fma"
+            report(f"qmmt {name} T={T} {route}", buf.view(-1, 16).cpu().numpy(), nblk)
+
+    lib3 = build("decode_attn", K3)
+    lib3.wtt_set_stamps(buf.data_ptr())
+    _cuda._LIBS["decode_attn"] = lib3
+    for B in (1, 5):
+        L, H, C, D, A = 4, 20, 448, 64, 448
+        kv = torch.randint(-127, 128, (L, B, H, 2, C, D), generator=g, dtype=torch.int8).to(dev)
+        scale = (0.01 + 0.02 * torch.rand((L, B, 2, C), generator=g)).to(dev)
+        q = torch.randn((B, H, 1, D), generator=g).to(dev)
+        mask = torch.zeros((B, 1, A), device=dev)
+        for _ in range(3):
+            DA.self_attend_q8(kv, scale, q, mask, l=3, attn_ctx=A)
+        torch.cuda.synchronize()
+        buf.zero_()
+        DA.self_attend_q8(kv, scale, q, mask, l=3, attn_ctx=A)
+        torch.cuda.synchronize()
+        report(f"self_attend_q8 B={B}", buf.view(-1, 16).cpu().numpy(), B * H * DA.CLUSTER)
+
+
+if __name__ == "__main__":
+    main()
