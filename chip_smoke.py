@@ -345,21 +345,31 @@ def check_self_attend_q8(dev, DA):
 
 def check_qmm(dev, QM):
     """K5 at whisper-bench -w 2's shape: 4096^3, codes in [-16, 16) with
-    per-32 scales, f32 activations as the bench chain feeds them."""
+    per-32 scales.  Checked and timed on f32 x, as the bench chain feeds it
+    (the wrapper's bf16 cast counts in the time), and on bf16 x, the input
+    cuBLAS gets as the yardstick."""
     N = 4096
     g = torch.Generator().manual_seed(3)
     x = torch.randn((N, N), generator=g).to(dev)
+    xb = x.to(torch.bfloat16)
     codes = torch.randint(-16, 16, (N, N), generator=g, dtype=torch.int8).to(dev)
     scales = (0.02 * torch.rand((N, N // 32), generator=g)).to(dev)
-    y = QM.qmm(x, codes, scales)
     ref = QM.qmm_plain(x, codes, scales)
-    torch.cuda.synchronize()
-    err = (y - ref).abs().max().item()
     tol = 1e-4 * ref.abs().max().item()
-    log(f"  check qmm[T=K=R={N}]: max_abs_err={err:.3e} tol={tol:.3e}")
-    assert math.isfinite(err) and err <= tol
-    # x (f32) and codes read once, scales once, the f32 output written once
+    err = 0.0
+    for name, xi in (("f32 x", x), ("bf16 x", xb)):
+        y = QM.qmm(xi, codes, scales)
+        torch.cuda.synchronize()
+        e = (y - ref).abs().max().item()
+        log(f"  check qmm[T=K=R={N}, {name}]: max_abs_err={e:.3e} tol={tol:.3e}")
+        assert math.isfinite(e) and e <= tol
+        err = max(err, e)
+    assert same_under_graph(lambda: QM.qmm(x, codes, scales)), "qmm: not bit-identical"
+    log(f"  check qmm[T=K=R={N}]: bit-identical over two calls and a CUDA-graph replay")
+    # x (f32 or bf16) and codes read once, scales once, the f32 output
+    # written once
     nbytes = N * N * 4 + N * N + N * (N // 32) * 4 + N * N * 4
+    nbytes_bf16 = nbytes - N * N * 2
     flops = 2.0 * N ** 3
     planes = {}
 
@@ -368,9 +378,11 @@ def check_qmm(dev, QM):
             planes[i] = (codes.clone(), scales.clone())
         return planes[i]
 
-    def run_kernel(i):
-        c, sc = plane(i)
-        return lambda: QM.qmm(x, c, sc)
+    def run_kernel(xi):
+        def make(i):
+            c, sc = plane(i)
+            return lambda: QM.qmm(xi, c, sc)
+        return make
 
     def run_plain(i):
         c, sc = plane(i)
@@ -379,7 +391,6 @@ def check_qmm(dev, QM):
     # cuBLAS on bf16 x and the bf16-dequantized weight, f32 out
     wdq = (codes.float() * scales.to(torch.bfloat16).float().repeat_interleave(32, 1)
            ).to(torch.bfloat16)
-    xb = x.to(torch.bfloat16)
     lib = {}
 
     def run_library(i):
@@ -388,15 +399,19 @@ def check_qmm(dev, QM):
         w = lib[i]
         return lambda: torch.mm(xb, w.T, out_dtype=torch.float32)
 
-    ms = device_ms(run_kernel, nbytes)
+    ms = device_ms(run_kernel(x), nbytes)
+    ms_bf16 = device_ms(run_kernel(xb), nbytes_bf16)
+    cast_ms = device_ms(lambda i: (lambda: x.to(torch.bfloat16)), N * N * 6)
     plain_ms = device_ms(run_plain, nbytes)
     library_ms = device_ms(run_library, 2 * N * N * 2)
     planes.clear()
     lib.clear()
     b_ms, by = bound_ms(nbytes, flops)
-    log(f"  time  qmm[T=K=R={N}]: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
+    log(f"  time  qmm[T=K=R={N}]: kernel_ms={ms:.5f} (f32 x, cast included) "
+        f"kernel_bf16_x_ms={ms_bf16:.5f} cast_ms={cast_ms:.5f} plain_ms={plain_ms:.5f} "
         f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) "
-        f"tflops={flops / ms / 1e9:.2f}")
+        f"tflops={flops / ms / 1e9:.2f} tflops_bf16_x={flops / ms_bf16 / 1e9:.2f} "
+        f"half_bound_met={ms <= 2 * b_ms} bf16_not_slower_than_library={ms_bf16 <= library_ms}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
                 flops=flops, err=err)
 
@@ -468,38 +483,49 @@ def check_flash(dev, FA):
 
 
 def check_self_attention_qkv(dev, EA):
-    """K4 at turbo widths: T = 1536 (1500 padded), S = 1280, 20 heads of 64."""
+    """K4 at turbo widths: T = 1536 (1500 padded), S = 1280, 20 heads of 64,
+    on the encoder's f32 (T, 3S) projection as the encoder hands it over;
+    the bf16 input is checked and timed beside it."""
     T, true_len, H, D = 1536, 1500, 20, 64
     S = H * D
     g = torch.Generator().manual_seed(2)
     qkv = torch.randn((T, 3 * S), generator=g).to(dev)
-    out = EA.self_attention_qkv(qkv, H, true_len=true_len)
-    ref = EA.self_attention_qkv_plain(qkv, H, true_len=true_len)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = 2e-2 * ref.float().abs().max().item()
-    log(f"  check self_attention_qkv[T={T},true_len={true_len}]: "
-        f"max_abs_err={err:.3e} tol={tol:.3e}")
-    assert math.isfinite(err) and err <= tol
     qkvb = qkv.to(torch.bfloat16)
+    err = 0.0
+    for name, buf in (("f32", qkv), ("bf16", qkvb)):
+        out = EA.self_attention_qkv(buf, H, true_len=true_len)
+        ref = EA.self_attention_qkv_plain(buf, H, true_len=true_len)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float()).abs().max().item()
+        tol = 8e-3 * ref.float().abs().max().item()
+        log(f"  check self_attention_qkv[T={T},true_len={true_len},{name} qkv]: "
+            f"max_abs_err={e:.3e} tol={tol:.3e}")
+        assert math.isfinite(e) and e <= tol
+        err = max(err, e)
+    assert same_under_graph(lambda: EA.self_attention_qkv(qkv, H, true_len=true_len))
+    log("  check self_attention_qkv: bit-identical over two calls and a CUDA-graph replay")
     # key columns at or past true_len add exactly 0 to the output, so the
     # work the function needs reads k and v for true_len rows only; q and
-    # the output keep all T rows
-    nbytes = T * S * 2 + 2 * true_len * S * 2 + T * S * 2
+    # the output keep all T rows.  q, k, v are read in f32, the output
+    # written in bf16.
+    nbytes = T * S * 4 + 2 * true_len * S * 4 + T * S * 2
+    nbytes_bf16 = T * S * 2 + 2 * true_len * S * 2 + T * S * 2
     flops = 4.0 * T * true_len * S
     bufs = {}
 
-    def buf(i):
-        if i not in bufs:
-            bufs[i] = qkvb.clone()
-        return bufs[i]
+    def buf(src, i):
+        if (src.dtype, i) not in bufs:
+            bufs[src.dtype, i] = src.clone()
+        return bufs[src.dtype, i]
 
-    def run_kernel(i):
-        b = buf(i)
-        return lambda: EA.self_attention_qkv(b, H, true_len=true_len)
+    def run_kernel(src):
+        def make(i):
+            b = buf(src, i)
+            return lambda: EA.self_attention_qkv(b, H, true_len=true_len)
+        return make
 
     def run_plain(i):
-        b = buf(i)
+        b = buf(qkv, i)
         return lambda: EA.self_attention_qkv_plain(b, H, true_len=true_len)
 
     heads = [qkvb[:, i * S:(i + 1) * S].reshape(T, H, D).transpose(0, 1).contiguous()
@@ -514,14 +540,17 @@ def check_self_attention_qkv(dev, EA):
         return lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=keep)
 
-    ms = device_ms(run_kernel, nbytes)
+    ms = device_ms(run_kernel(qkv), nbytes)
+    ms_bf16 = device_ms(run_kernel(qkvb), nbytes_bf16)
     plain_ms = device_ms(run_plain, nbytes)
-    library_ms = device_ms(run_library, nbytes)
+    library_ms = device_ms(run_library, nbytes_bf16)
     bufs.clear()
     lib.clear()
     b_ms, by = bound_ms(nbytes, flops)
-    log(f"  time  self_attention_qkv[T={T}]: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-        f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) launches_per_encode=32")
+    log(f"  time  self_attention_qkv[T={T}]: kernel_ms={ms:.5f} (f32 qkv) "
+        f"kernel_bf16_qkv_ms={ms_bf16:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) launches_per_encode=32 "
+        f"per_encode_ms={32 * ms:.4f} target_0.25ms_met={ms <= 0.25}")
     # the JSON row: one encode's 32 layers
     return dict(ms=32 * ms, plain_ms=32 * plain_ms, library_ms=32 * library_ms,
                 bytes=32 * nbytes, flops=32 * flops, err=err)
@@ -663,8 +692,10 @@ def flash_encode(M, FA, EA, ctx, pcm: np.ndarray) -> None:
         busy = sum(dev_us(e) for e in on_dev) / 1e3
         attn = sum(dev_us(e) for e in on_dev
                    if "enc_attn_kernel" in e.key or "flash_attn_kernel" in e.key) / 1e3
+        casts = sum(e.count for e in on_dev if "copy" in e.key)
         log(f"  encode route={route}: encode_wall_ms={ms:.3f} device_busy_ms={busy:.3f} "
-            f"attention_kernel_ms={attn:.3f} (profiler) "
+            f"attention_kernel_ms={attn:.3f} copy_kernel_launches={casts} "
+            f"device_launches={sum(e.count for e in on_dev)} (profiler) "
             f"self_attention_qkv_launches={n_k4} flash_self_attention_launches={n_k6}")
     del os.environ["WTPU_ENC_ATTN"]
     assert n_k6 == ctx.hp.n_audio_layer == 32 and n_k4 == 0, (n_k4, n_k6)

@@ -63,9 +63,13 @@ def test_self_attend_q8_rejects_bad_mask():
                            l=0, attn_ctx=8)
 
 
-@pytest.mark.parametrize("n_head,d", [(2, 64), (1, 128)])
-def test_self_attention_qkv_plain_matches_pallas(n_head, d):
-    T, true_len = 512, 500
+# true_len 500 (the encoder's pad columns), T (no masked column) and 1 (a
+# single real column: every row is one value row of v)
+@pytest.mark.parametrize("n_head,d,true_len", [
+    pytest.param(2, 64, 500, id="2-64"), pytest.param(1, 128, 500, id="1-128"),
+    (2, 64, 512), (1, 128, 512), (2, 64, 1), (1, 128, 1)])
+def test_self_attention_qkv_plain_matches_pallas(n_head, d, true_len):
+    T = 512
     S = n_head * d
     qkv = np.random.default_rng(1).standard_normal((T, 3 * S)).astype(np.float32)
     ref = np.asarray(JEA.self_attention_qkv(
@@ -76,3 +80,39 @@ def test_self_attention_qkv_plain_matches_pallas(n_head, d):
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (T, S)
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=0,
                                atol=2e-2 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("true_len", [None, 100, 1])
+def test_self_attention_qkv_plain_rounds_on_load(true_len):
+    # the kernel reads the f32 projection and rounds it to bf16 as it loads:
+    # the plain version on an f32 buffer equals it on the buffer cast first
+    qkv = torch.from_numpy(
+        np.random.default_rng(3).standard_normal((128, 3 * 128)).astype(np.float32))
+    a = TEA.self_attention_qkv_plain(qkv, 2, true_len)
+    b = TEA.self_attention_qkv_plain(qkv.to(torch.bfloat16), 2, true_len)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,n_head,true_len,dtype", [
+    ((512, 3 * 128), 2, 500, torch.float32),
+    ((1536, 3 * 1280), 20, 1500, torch.bfloat16),
+    ((208, 3 * 256), 2, 1, torch.float32),
+])
+def test_self_attention_qkv_kernel_shapes(shape, n_head, true_len, dtype):
+    qkv = torch.zeros(shape, dtype=dtype)
+    t, s, d, n = TEA.kernel_shapes(qkv, n_head, true_len)
+    assert (t, s, d, n) == (shape[0], shape[1] // 3, shape[1] // 3 // n_head, true_len)
+
+
+@pytest.mark.parametrize("shape,n_head,true_len,dtype", [
+    ((512, 3 * 96), 1, None, torch.float32),       # heads of 96
+    ((512, 3 * 128), 4, None, torch.float32),      # heads of 32
+    ((520, 3 * 128), 2, None, torch.float32),      # T not a multiple of 16
+    ((512, 3 * 128), 2, 0, torch.float32),         # no real column
+    ((512, 3 * 128), 2, 513, torch.float32),       # true_len past T
+    ((512, 3 * 128), 2, None, torch.float16),      # neither f32 nor bf16
+    ((512, 3 * 128 + 1), 2, None, torch.float32),  # not (T, 3S)
+])
+def test_self_attention_qkv_kernel_refuses(shape, n_head, true_len, dtype):
+    with pytest.raises(ValueError):
+        TEA.kernel_shapes(torch.zeros(shape, dtype=dtype), n_head, true_len)

@@ -153,17 +153,24 @@ def test_embed_lookup_matches_jax():
 # multiples of the JAX kernel's tiles (16 x 128 here), and qk is 32 (the
 # *_0 formats) or 16 (NVFP4 sub-blocks).  Tolerance 1e-5 of max |y|: the
 # same bf16-rounded operands on both sides, another f32 summation order.
-@pytest.mark.parametrize("qk", [32, 16])
-@pytest.mark.parametrize("T_,K_,R_", [(37, 256, 300), (1, 128, 5), (20, 512, 129)])
-def test_qmm_plain_matches_pallas(qk, T_, K_, R_):
+@pytest.mark.parametrize("T_,K_,R_,qk,x_dtype", [
+    *(pytest.param(t, k, r, q, "f32", id=f"{t}-{k}-{r}-{q}")
+      for t, k, r in [(37, 256, 300), (1, 128, 5), (20, 512, 129)] for q in (32, 16)),
+    # bf16 x (the input cuBLAS gets as the yardstick), and K = 1040, which
+    # is not a multiple of the CUDA kernel's 64-deep stage
+    (70, 256, 200, 32, "bf16"), (70, 1040, 200, 16, "f32"), (70, 1040, 200, 16, "bf16")])
+def test_qmm_plain_matches_pallas(T_, K_, R_, qk, x_dtype):
     rng = np.random.default_rng(T_ + K_ + R_ + qk)
     x = rng.standard_normal((T_, K_)).astype(np.float32)
     codes = rng.integers(-16, 16, (R_, K_)).astype(np.int8)
     scales = (0.02 * rng.random((R_, K_ // qk))).astype(np.float32)
-    y_ref = np.asarray(JQMM.qmm(jnp.asarray(x), jnp.asarray(codes), jnp.asarray(scales),
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    if x_dtype == "bf16":
+        jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
+    y_ref = np.asarray(JQMM.qmm(jx, jnp.asarray(codes), jnp.asarray(scales),
                                 block_t=16, block_r=128, interpret=True))
     before = TQMM.qmm.launches
-    y = TQMM.qmm(*(torch.from_numpy(a) for a in (x, codes, scales)))
+    y = TQMM.qmm(tx, torch.from_numpy(codes), torch.from_numpy(scales))
     assert TQMM.qmm.launches == before       # the CPU takes the plain path
     assert y.dtype == torch.float32 and tuple(y.shape) == (T_, R_)
     np.testing.assert_allclose(y.numpy(), y_ref, rtol=0, atol=1e-5 * np.abs(y_ref).max())
@@ -181,3 +188,43 @@ def test_qmm_plain_rounds_like_the_tpu_kernel():
     w = (codes.float() * scales.to(torch.bfloat16).float().repeat_interleave(32, 1))
     ref = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float().T
     torch.testing.assert_close(y, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T_,K_,R_,qk", [(4096, 4096, 4096, 32), (1, 1040, 51866, 16),
+                                         (37, 256, 300, 16)])
+def test_qmm_shapes(T_, K_, R_, qk):
+    x = torch.zeros((T_, K_))
+    codes = torch.zeros((R_, K_), dtype=torch.int8)
+    scales = torch.zeros((R_, K_ // qk))
+    assert TQMM.qmm_shapes(x, codes, scales) == (T_, K_, R_, qk)
+
+
+@pytest.mark.parametrize("case", ["k_mismatch", "qk_64", "qk_8", "k_not_16", "scale_rows",
+                                  "codes_dtype", "scales_dtype", "compute_dtype", "x_1d"])
+def test_qmm_shapes_refuses(case):
+    T_, K_, R_ = 8, 256, 64
+    x = torch.zeros((T_, K_))
+    codes = torch.zeros((R_, K_), dtype=torch.int8)
+    scales = torch.zeros((R_, K_ // 32))
+    kw = {}
+    if case == "k_mismatch":
+        codes = torch.zeros((R_, K_ + 32), dtype=torch.int8)
+    elif case == "qk_64":
+        scales = torch.zeros((R_, K_ // 64))
+    elif case == "qk_8":
+        scales = torch.zeros((R_, K_ // 8))
+    elif case == "k_not_16":      # K = 264: qk = 24 for 11 blocks
+        x, codes = torch.zeros((T_, 264)), torch.zeros((R_, 264), dtype=torch.int8)
+        scales = torch.zeros((R_, 11))
+    elif case == "scale_rows":
+        scales = torch.zeros((R_ + 1, K_ // 32))
+    elif case == "codes_dtype":
+        codes = codes.to(torch.uint8)
+    elif case == "scales_dtype":
+        scales = scales.to(torch.float16)
+    elif case == "compute_dtype":
+        kw["dtype"] = torch.float32
+    elif case == "x_1d":
+        x = torch.zeros((K_,))
+    with pytest.raises(ValueError):
+        TQMM.qmm_shapes(x, codes, scales, **kw)

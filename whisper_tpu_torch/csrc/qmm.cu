@@ -1,9 +1,9 @@
 // Dequantize x matmul over block-quantized weight planes in file
-// orientation, on the tensor cores.
+// orientation: a Hopper mixed-input GEMM (wgmma fed by TMA).
 //
 // Replaces the TPU kernel whisper_tpu/ops/qmm.py qmm (_qmm_kernel):
 //
-//   out[T, R] = bf16(x)[T, K] @ W[R, K]^T,  W = bf16(bf16(code) * bf16(scale))
+//   out[T, R] = bf16(x)[T, K] @ W[R, K]^T,  W = bf16(code * bf16(scale))
 //
 //   x (T, K) bf16 (the wrapper rounds any float input); codes (R, K) int8;
 //   scales (R, K/qk) f32 with qk in {16, 32}; out (T, R) f32.
@@ -14,156 +14,388 @@
 //
 // What bounds it on an H100: operations.  At 4096^3 (whisper-bench -w 2) the
 // product is 137 GFLOP against 153 MB of operands: 0.139 ms at the bf16
-// tensor-core peak, 0.046 ms of memory traffic.
+// tensor-core peak, 0.046 ms of memory traffic.  Only wgmma reaches that
+// peak, so the product runs on it.
 //
-// Design: a tiled GEMM on mma.sync m16n8k16 (bf16 in, f32 accumulate).  One
-// block of 8 warps per 128 x 128 output tile walks K in slabs of 32.  Each
-// slab of x and of the dequantized weight rows goes to shared memory (two
-// buffers, so the next slab's global loads overlap this slab's products);
-// each thread dequantizes 16 codes of one weight row on the way in.  Both
-// operands are K-contiguous, which is exactly the row.col layout of the mma
-// fragments, so fragments are 32-bit shared-memory loads.  wgmma and TMA
-// are later work.
+// Design: the operands are swapped, so each block computes a 128 x 256 tile
+// of out^T = W . x^T.  The dequantized W is wgmma's A operand, taken from
+// registers: W rows are K-contiguous, as register A needs, and the bf16
+// weight tile never exists in shared memory.  x is the B operand, read by
+// wgmma from a TMA tile (K-major, 128-byte swizzle).
+//
+//   - One producer thread keeps a ring of 5 stages in flight, 64 deep in K:
+//     per stage one TMA box of x (256 x 64 bf16) and one of codes (128 x 64
+//     int8, 64-byte swizzle, so the consumers' 4-byte reads are free of
+//     bank conflicts).  A full mbarrier per stage counts the TMA bytes; an
+//     empty mbarrier counts the consumer warps.  Each consumer thread reads
+//     its rows' block scales itself, through L1, ahead of their use.
+//   - Two consumer warpgroups own 64 weight rows each and a 64 x 256 f32
+//     accumulator (128 registers a thread; setmaxnreg gives them 232 and
+//     the producer 40).  Per stage each thread reads its rows' codes from
+//     shared memory in wgmma's A-fragment order, converts them with the
+//     row's bf16 scale (byte permutes, f32 adds and bf16x2 multiplies:
+//     the int-to-float conversion pipe would take 3/4 of the products'
+//     time), and issues 4 wgmma m64n256k16.  The A fragments alternate
+//     between two register sets (the loop is unrolled by two): the next
+//     stage is converted into one set while the products of this stage
+//     read the other, and the wait that retires them (wait_group 0) comes
+//     before any product reads the new set, so ptxas keeps the products
+//     asynchronous.  A stage goes back to the producer once the products
+//     that read it have retired; the other warpgroup's products keep the
+//     tensor cores busy across that wait.
+//   - TMA zero-fills the ragged T, R and K edges; the epilogue stores the
+//     accumulator straight to out (T, R): each warp store writes whole
+//     32-byte sectors (8 consecutive weight rows of 4 activation rows).
+//   - No split-K: two calls give bit-identical results.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int LDS = BK + 8;  // padded row (bf16): conflict-free fragment loads
-constexpr int WM = 64, WN = 32;  // warp tile: 2 x 4 warps
-constexpr int MT = WM / 16, NT = WN / 8;
+constexpr int BR = 128;   // weight rows (out columns) per block: 2 warpgroups x 64
+constexpr int BT = 256;   // activation rows (out rows) per block: the wgmma N
+constexpr int BK = 64;    // K per stage: one 128-byte swizzle row of bf16 x
+constexpr int STAGES = 5;
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
 
-struct Slab {
-  uint4 x[2];      // 2 x 8 bf16 of x
-  uint4 codes;     // 16 int8 codes of one weight row
-  float scale;     // that row's block scale, rounded to bf16
+constexpr int X_BYTES = BT * BK * 2;         // 32768
+constexpr int C_BYTES = BR * BK;             // 8192
+constexpr int STAGE_BYTES = X_BYTES + C_BYTES;  // 40960, a multiple of 1024
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major bf16 tile with 128-byte swizzle: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO unused
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// d[64 x 256] += a[64 x 16] (registers, bf16) . b[16 x 256] (shared, K-major)
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// byte offset of (row, byte) in a tile of 64-byte rows written by TMA with
+// 64-byte swizzle: 16-byte chunk bits [4, 6) XOR address bits [7, 9)
+__device__ __forceinline__ int swz64(int row, int byte) {
+  return row * 64 + ((((byte >> 4) ^ (row >> 1)) & 3) << 4) + (byte & 15);
+}
+
+// four int8 codes (bytes 0..3) times a bf16 scale s2 = (s, s), as two bf16x2
+// registers, off the conversion pipe (16 results a clock per SM): each
+// code + 128 goes into the low byte of 2^23 and 2^23 + 128 comes off in f32,
+// which leaves the code exact in the upper half of the word (bf16); one
+// bf16x2 multiply then rounds code * s once, as bf16(f32(code * s)) does
+__device__ __forceinline__ void dequant4(uint32_t c, uint32_t s2, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = c ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+  const uint32_t c01 = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  const uint32_t c23 = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(lo) : "r"(c01), "r"(s2));
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(hi) : "r"(c23), "r"(s2));
+}
+
+struct Smem {
+  uint8_t* base;  // 1024-aligned
+  __device__ __forceinline__ __nv_bfloat16* x(int s) const {
+    return reinterpret_cast<__nv_bfloat16*>(base + s * STAGE_BYTES);
+  }
+  __device__ __forceinline__ uint8_t* codes(int s) const { return base + s * STAGE_BYTES + X_BYTES; }
+  __device__ __forceinline__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(base + STAGES * STAGE_BYTES) + s;
+  }
+  __device__ __forceinline__ uint64_t* empty(int s) const { return full(STAGES) + s; }
 };
 
-__device__ __forceinline__ void load_slab(Slab& s, const __nv_bfloat16* __restrict__ x,
-                                          const int8_t* __restrict__ codes,
-                                          const float* __restrict__ scales, int T, int K,
-                                          int R, int nb, int qk, int m0, int n0, int k0) {
-  const int tid = threadIdx.x;
+// The block scales of this thread's two weight rows for stage `it` (2 or 4
+// per row), read through L1 about a stage ahead of their use; zero past R
+// and K.
+__device__ __forceinline__ void load_scales(float (&sc)[2][4], const float* __restrict__ scales,
+                                            int it, int ra, int R, int nb, int qk) {
+  const int per = BK / qk;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + i * kThreads;       // 512 chunks of 8 bf16
-    const int r = idx >> 2, c = (idx & 3) * 8;
-    const int gr = m0 + r, gk = k0 + c;
-    s.x[i] = (gr < T && gk < K)
-                 ? *reinterpret_cast<const uint4*>(x + (size_t)gr * K + gk)
-                 : make_uint4(0, 0, 0, 0);
-  }
-  const int r = tid >> 1, c = (tid & 1) * 16;  // 256 chunks of 16 codes
-  const int gr = n0 + r, gk = k0 + c;
-  if (gr < R && gk < K) {
-    s.codes = *reinterpret_cast<const uint4*>(codes + (size_t)gr * K + gk);
-    s.scale = __bfloat162float(__float2bfloat16_rn(scales[(size_t)gr * nb + gk / qk]));
-  } else {
-    s.codes = make_uint4(0, 0, 0, 0);
-    s.scale = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = ra + 8 * h;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int b = it * per + j;
+      sc[h][j] = (j < per && r < R && b < nb) ? __ldg(scales + (size_t)r * nb + b) : 0.f;
+    }
   }
 }
 
-__device__ __forceinline__ void store_slab(const Slab& s, __nv_bfloat16* As, __nv_bfloat16* Bs) {
-  const int tid = threadIdx.x;
+// Stage `it`'s A fragments for this thread, once the stage has landed: the
+// codes of its two rows in wgmma's A order (k = 2tg, 2tg+1, 2tg+8, 2tg+9 of
+// each 16-deep k-step), each times its block's bf16 scale.
+__device__ __forceinline__ void convert_stage(const Smem& sm, int it, uint32_t (&a)[4][4],
+                                              const float (&sc)[2][4], int row0, int qk, int tg) {
+  const int st = it % STAGES;
+  mbar_wait(sm.full(st), (it / STAGES) & 1);
+  const uint8_t* cs = sm.codes(st);
+  const uint32_t sel = (tg & 1) ? 0x7632 : 0x5410;
+  const int wb = 4 * (tg >> 1);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx >> 2, c = (idx & 3) * 8;
-    *reinterpret_cast<uint4*>(As + r * LDS + c) = s.x[i];
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(cs + swz64(r, 16 * kk + wb));
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(cs + swz64(r, 16 * kk + 8 + wb));
+      const uint32_t c = __byte_perm(w0, w1, sel);  // codes of this k-step
+      const float s = qk == 16 ? sc[h][kk] : sc[h][kk >> 1];
+      const __nv_bfloat162 s2 = __float2bfloat162_rn(s);
+      dequant4(c, *reinterpret_cast<const uint32_t*>(&s2), a[kk][h], a[kk][h + 2]);
+    }
   }
-  const int r = tid >> 1, c = (tid & 1) * 16;
-  const int8_t* q = reinterpret_cast<const int8_t*>(&s.codes);
-  uint32_t w[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    w[i] = wtt_pack_bf16((float)q[2 * i] * s.scale, (float)q[2 * i + 1] * s.scale);
-  uint4* dst = reinterpret_cast<uint4*>(Bs + r * LDS + c);
-  dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-  dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-__global__ void __launch_bounds__(kThreads)
-qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
-           const float* __restrict__ scales, float* __restrict__ out, int T, int K,
-           int R, int qk) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][BM * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][BN * LDS];
+// the 4 products of stage `it`, issued and committed as one group
+__device__ __forceinline__ void issue_stage(const Smem& sm, int it, float* acc,
+                                            const uint32_t (&a)[4][4]) {
+  const uint32_t xb = smem_addr(sm.x(it % STAGES));
+  fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_m64n256k16_rs(acc, a[kk], desc_sw128(xb + kk * 32));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 
+// wait for the group to retire, then hand the stage back to the producer
+__device__ __forceinline__ void retire_stage(const Smem& sm, int it, float* acc) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+  if ((threadIdx.x & 31) == 0) mbar_arrive(sm.empty(it % STAGES));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+qmm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap c_map,
+           const float* __restrict__ scales, float* __restrict__ out, int T, int K, int R,
+           int qk) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem sm{reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                     ~uintptr_t(1023))};
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * BR, t0 = blockIdx.y * BT;
+  const int n_it = (K + BK - 1) / BK;
   const int nb = K / qk;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
-  const int g = lane >> 2, tg = lane & 3;
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int n_slabs = (K + BK - 1) / BK;
-  Slab s;
-  load_slab(s, x, codes, scales, T, K, R, nb, qk, m0, n0, 0);
-  store_slab(s, As[0], Bs[0]);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(sm.full(s), 1);
+      mbar_init(sm.empty(s), kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  for (int kt = 0; kt < n_slabs; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_slabs) load_slab(s, x, codes, scales, T, K, R, nb, qk, m0, n0, (kt + 1) * BK);
-    const __nv_bfloat16* A = As[cur];
-    const __nv_bfloat16* B = Bs[cur];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4], bf[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const __nv_bfloat16* p = A + (wm + i * 16 + g) * LDS + kk + tg * 2;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* p = B + (wn + j * 8 + g) * LDS + kk + tg * 2;
-        bf[j][0] = *reinterpret_cast<const uint32_t*>(p);
-        bf[j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) wtt_mma_bf16(acc[i][j], af[i], bf[j]);
+  if (tid >= kConsumers) {
+    // producer warpgroup: one thread issues, the others leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid > kConsumers) return;
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % STAGES;
+      mbar_wait(sm.empty(st), ((it / STAGES) & 1) ^ 1);
+      mbar_expect_tx(sm.full(st), X_BYTES + C_BYTES);
+      tma_load_2d(sm.x(st), &x_map, sm.full(st), it * BK, t0);
+      tma_load_2d(sm.codes(st), &c_map, sm.full(st), it * BK, r0);
     }
-    if (kt + 1 < n_slabs) store_slab(s, As[cur ^ 1], Bs[cur ^ 1]);
-    __syncthreads();
+    return;
   }
 
+  // consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int row0 = wg * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+
+  float acc[128];
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + wm + i * 16 + g + (e >> 1) * 8;
-        const int c = n0 + wn + j * 8 + tg * 2 + (e & 1);
-        if (r < T && c < R) out[(size_t)r * R + c] = acc[i][j][e];
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float sc[2][4];
+  uint32_t a0[4][4], a1[4][4];
+  const int ra0 = r0 + row0;
+  load_scales(sc, scales, 0, ra0, R, nb, qk);
+  convert_stage(sm, 0, a0, sc, row0, qk, tg);
+  if (n_it > 1) load_scales(sc, scales, 1, ra0, R, nb, qk);
+#pragma unroll 1
+  for (int it = 0; it < n_it; it += 2) {
+    issue_stage(sm, it, acc, a0);
+    if (it + 1 < n_it) {
+      convert_stage(sm, it + 1, a1, sc, row0, qk, tg);
+      if (it + 2 < n_it) load_scales(sc, scales, it + 2, ra0, R, nb, qk);
+    }
+    retire_stage(sm, it, acc);
+    if (it + 1 < n_it) {
+      issue_stage(sm, it + 1, acc, a1);
+      if (it + 2 < n_it) {
+        convert_stage(sm, it + 2, a0, sc, row0, qk, tg);
+        if (it + 3 < n_it) load_scales(sc, scales, it + 3, ra0, R, nb, qk);
       }
+      retire_stage(sm, it + 1, acc);
+    }
+  }
+
+  // acc[4j + e]: weight row row0 + 8 * (e >> 1), activation row 8j + 2tg + (e & 1)
+  const int ra = r0 + row0, rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+    const int t = t0 + 8 * j + 2 * tg;
+    if (t < T) {
+      if (ra < R) out[(size_t)t * R + ra] = acc[4 * j];
+      if (rb < R) out[(size_t)t * R + rb] = acc[4 * j + 2];
+    }
+    if (t + 1 < T) {
+      if (ra < R) out[(size_t)(t + 1) * R + ra] = acc[4 * j + 1];
+      if (rb < R) out[(size_t)(t + 1) * R + rb] = acc[4 * j + 3];
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime: the
+// library links no libcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a row-major (rows, cols) tensor read in boxes of (box_rows, box_cols)
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
+              int rows, int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
-// Requirements (checked by the Python wrapper): K % 16 == 0, qk = K / nb in
-// {16, 32}, contiguous tensors on the device, x bf16 with 16-byte aligned
-// rows (K % 8 == 0 follows).
+// Requirements (checked by the Python wrapper): K % 16 == 0 (16-byte TMA
+// row strides), qk = K / nb in {16, 32}, contiguous tensors on the device,
+// x bf16, x and codes 16-byte aligned.
 extern "C" int wtt_qmm(const void* x, const void* codes, const void* scales, void* out,
                        int T, int K, int R, int qk, void* stream) {
-  dim3 grid((R + BN - 1) / BN, (T + BM - 1) / BM);
-  qmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(codes),
-      static_cast<const float*>(scales), static_cast<float*>(out), T, K, R, qk);
+  CUtensorMap x_map, c_map;
+  if (!make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, T, K, BT, BK,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&c_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, R, K, BR, BK,
+                CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  static size_t smem_allowed = 0;
+  cudaError_t err = wtt_allow_smem(qmm_kernel, SMEM_BYTES, &smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((R + BR - 1) / BR, (T + BT - 1) / BT);
+  qmm_kernel<<<grid, kThreads, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      x_map, c_map, static_cast<const float*>(scales), static_cast<float*>(out), T, K, R, qk);
   return (int)cudaGetLastError();
 }

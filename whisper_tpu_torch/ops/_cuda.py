@@ -50,8 +50,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """Named by a hash of the source, every header under csrc/ (a changed
+    header rebuilds every library) and the compiler flags."""
     h = hashlib.sha256()
-    for f in (CSRC / SOURCES[name], CSRC / "common.cuh"):
+    for f in (CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
@@ -109,7 +112,7 @@ _SIGNATURES = {
     "qmmt": {"wtt_qmmt": [_P] * 11 + [_I] * 10 + [_F, _P]},
     "decode_attn": {"wtt_self_attend_q8": [_P, _P, _P, _I] + [_L] * 3 + [_P, _P]
                     + [_I] * 9 + [_P]},
-    "enc_attn": {"wtt_self_attention_qkv": [_P, _P] + [_I] * 4 + [_P]},
+    "enc_attn": {"wtt_self_attention_qkv": [_P, _P] + [_I] * 5 + [_P]},
     "qmm": {"wtt_qmm": [_P] * 4 + [_I] * 4 + [_P]},
     "flash_attn": {"wtt_flash_attn": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P]},
 }

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,30 +55,44 @@ def self_attention_qkv_plain(qkv: torch.Tensor, n_head: int,
     return o.transpose(0, 1).reshape(t, s).to(torch.bfloat16)
 
 
+def kernel_shapes(qkv: torch.Tensor, n_head: int,
+                  true_len: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """(T, S, d, true_len) of a call csrc/enc_attn.cu takes; ValueError for
+    one it does not: a (T, 3S) f32 or bf16 buffer, heads of 64 or 128, T a
+    multiple of 16, 0 < true_len <= T."""
+    if qkv.ndim != 2 or qkv.dtype not in (torch.float32, torch.bfloat16) or n_head < 1:
+        raise ValueError(f"self_attention_qkv: want a 2-D f32 or bf16 (T, 3S) buffer, "
+                         f"got {qkv.dtype} {tuple(qkv.shape)} n_head={n_head}")
+    t, s3 = qkv.shape
+    s = s3 // 3
+    d = s // n_head
+    n_real = t if true_len is None else true_len
+    if (d not in (64, 128) or d * n_head != s or s3 != 3 * s or t < 16 or t % 16
+            or not 0 < n_real <= t):
+        raise ValueError(f"self_attention_qkv: bad shapes qkv{tuple(qkv.shape)} "
+                         f"n_head={n_head} true_len={true_len}")
+    return t, s, d, n_real
+
+
 def self_attention_qkv(qkv: torch.Tensor, n_head: int,
                        true_len: Optional[int] = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v for all heads, straight off the fused
-    projection.  qkv: (T, 3S); returns (T, S) bf16."""
+    projection.  qkv: (T, 3S) f32 (the encoder's projection) or bf16, read
+    as it is and rounded to bf16 in the kernel; returns (T, S) bf16."""
     if qkv.device.type == "cpu":
         return self_attention_qkv_plain(qkv, n_head, true_len)
     from . import _cuda
     from .qmm import _check
 
-    t, s3 = qkv.shape
-    s = s3 // 3
-    d = s // n_head
-    n_real = t if true_len is None else true_len
-    if d not in (64, 128) or s % d or s3 != 3 * s or t % 16 or not 0 < n_real <= t:
-        raise ValueError(f"self_attention_qkv: bad shapes qkv{tuple(qkv.shape)} "
-                         f"n_head={n_head} true_len={true_len}")
-    if 16 * t * 4 + 16 * d * 4 > 227 * 1024:
-        raise ValueError(f"self_attention_qkv: T={t} too long for one score tile")
-    x = qkv.to(torch.bfloat16).contiguous()
-    _check("qkv", x, torch.bfloat16, (t, s3))
+    t, s, d, n_real = kernel_shapes(qkv, n_head, true_len)
+    _check("qkv", qkv, qkv.dtype, (t, 3 * s))
+    if qkv.data_ptr() % 16:
+        raise ValueError("self_attention_qkv: qkv must be 16-byte aligned")
     out = torch.empty((t, s), dtype=torch.bfloat16, device=qkv.device)
     lib = _cuda.library("enc_attn")
-    rc = lib.wtt_self_attention_qkv(_cuda.ptr(x), _cuda.ptr(out), t, s, d,
-                                    n_real, _cuda.stream_of(x))
+    rc = lib.wtt_self_attention_qkv(_cuda.ptr(qkv), _cuda.ptr(out), t, s, d, n_real,
+                                    int(qkv.dtype == torch.bfloat16),
+                                    _cuda.stream_of(qkv))
     _cuda.check(lib, "wtt_self_attention_qkv", rc)
     self_attention_qkv.launches += 1
     return out

@@ -305,34 +305,51 @@ def qmm_plain(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     return torch.matmul(x.to(dtype).float(), w.T)
 
 
+def qmm_shapes(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+               dtype=torch.bfloat16) -> Tuple[int, int, int, int]:
+    """(T, K, R, qk) of a call csrc/qmm.cu takes; ValueError for one it does
+    not: bf16 compute, x (T, K), int8 codes (R, K) and f32 scales (R, K/qk)
+    with qk in {16, 32}, K a multiple of 16 (16-byte TMA row strides)."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"qmm: compute dtype {dtype} not supported")
+    if x.ndim != 2 or codes.ndim != 2 or scales.ndim != 2 \
+            or codes.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise ValueError(f"qmm: want x (T, K), int8 codes (R, K), f32 scales (R, K/qk); "
+                         f"got x{tuple(x.shape)} codes {codes.dtype}{tuple(codes.shape)} "
+                         f"scales {scales.dtype}{tuple(scales.shape)}")
+    T, K = x.shape
+    R, Kc = codes.shape
+    nb = scales.shape[1]
+    if (Kc != K or scales.shape[0] != R or nb < 1 or K % nb or K // nb not in (16, 32)
+            or T < 1 or R < 1):
+        raise ValueError(f"qmm: bad shapes x{tuple(x.shape)} codes{tuple(codes.shape)} "
+                         f"scales{tuple(scales.shape)}")
+    return T, K, R, K // nb
+
+
 def qmm(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
         dtype=torch.bfloat16) -> torch.Tensor:
     """y[T, R] = x[T, K] @ dequant(codes, scales)[R, K]^T in f32, with x and
     the dequantized weight rounded to bf16.  codes (R, K) int8, scales
     (R, K/qk) f32 with qk = K // nb in {16, 32}.  A CUDA tensor launches the
-    kernel (csrc/qmm.cu), a CPU tensor takes `qmm_plain`."""
+    kernel (csrc/qmm.cu), a CPU tensor takes `qmm_plain`.  A float x other
+    than bf16 is rounded to bf16 here, one cast pass that counts in the
+    call's time."""
     if x.device.type == "cpu":
         return qmm_plain(x, codes, scales, dtype)
     from . import _cuda
 
-    T, K = x.shape
-    R, Kc = codes.shape
-    nb = scales.shape[1] if scales.ndim == 2 else 0
-    if dtype != torch.bfloat16:
-        raise ValueError(f"qmm: compute dtype {dtype} not supported")
-    if Kc != K or nb < 1 or K % nb or K // nb not in (16, 32) or T < 1 or R < 1:
-        raise ValueError(f"qmm: bad shapes x{tuple(x.shape)} codes{tuple(codes.shape)} "
-                         f"scales{tuple(scales.shape)}")
+    T, K, R, qk = qmm_shapes(x, codes, scales, dtype)
     xb = x.to(torch.bfloat16).contiguous()
     _check("x", xb, torch.bfloat16, (T, K))
     _check("codes", codes, torch.int8, (R, K))
-    _check("scales", scales, torch.float32, (R, nb))
+    _check("scales", scales, torch.float32, (R, K // qk))
     if codes.data_ptr() % 16 or xb.data_ptr() % 16:
         raise ValueError("qmm: x and codes must be 16-byte aligned")
     out = torch.empty((T, R), dtype=torch.float32, device=x.device)
     lib = _cuda.library("qmm")
     P = _cuda.ptr
-    rc = lib.wtt_qmm(P(xb), P(codes), P(scales), P(out), T, K, R, K // nb,
+    rc = lib.wtt_qmm(P(xb), P(codes), P(scales), P(out), T, K, R, qk,
                      _cuda.stream_of(x))
     _cuda.check(lib, "wtt_qmm", rc)
     qmm.launches += 1

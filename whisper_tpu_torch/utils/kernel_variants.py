@@ -1,0 +1,189 @@
+"""Device times of the dequantize x matmul (csrc/qmm.cu) and of the
+encoder's fused-QKV attention (csrc/enc_attn.cu) against variants of their
+designs that were tried and dropped.
+
+    python -m whisper_tpu_torch.utils.kernel_variants      # on the card
+
+Each variant is a copy of the source with a few text edits (each anchored on
+a line of the source, so a changed source fails loudly here), built with the
+package's nvcc flags into whisper_tpu_torch/build/ and installed under the
+package's wrapper.  The qmm ablations (`ablate_*`) drop part of the work on
+purpose, so their error is large; they say where the time goes.  Each
+variant's error against the plain version is printed and it is timed at
+the shapes chip_smoke.py times, with its timer (`device_ms`: CUDA events
+around CUDA-graph replays of calls on input copies that rotate past the
+50 MB L2): qmm at 4096^3 on bf16 x, self_attention_qkv at large-v3-turbo's
+T = 1536, true_len = 1500 on the f32 projection and on bf16.  The kernels
+of the package are not changed.
+"""
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from ..ops import _cuda
+from ..ops import enc_attn as EA
+from ..ops import qmm as QM
+
+CS = str(_cuda.CSRC)
+
+# K5: the int-to-float conversion pipe (I2F, FMUL, F2F) in place of byte
+# permutes, f32 adds and bf16x2 multiplies
+I2F = [("""  const uint32_t u = c ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+  const uint32_t c01 = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  const uint32_t c23 = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+  asm("mul.rn.bf16x2 %0, %1, %2;\\n" : "=r"(lo) : "r"(c01), "r"(s2));
+  asm("mul.rn.bf16x2 %0, %1, %2;\\n" : "=r"(hi) : "r"(c23), "r"(s2));
+""", """  const float sc = __uint_as_float(s2 << 16);
+  const float f0 = (float)(int8_t)(c & 0xff), f1 = (float)(int8_t)((c >> 8) & 0xff);
+  const float f2 = (float)(int8_t)((c >> 16) & 0xff), f3 = (float)(int8_t)(c >> 24);
+  lo = wtt_pack_bf16(f0 * sc, f1 * sc);
+  hi = wtt_pack_bf16(f2 * sc, f3 * sc);
+""")]
+# K5: one register set; each warpgroup converts a stage, then issues and
+# waits for its products, so only the other warpgroup overlaps the convert
+SERIAL = [("""  float sc[2][4];
+  uint32_t a0[4][4], a1[4][4];
+  const int ra0 = r0 + row0;
+  load_scales(sc, scales, 0, ra0, R, nb, qk);
+  convert_stage(sm, 0, a0, sc, row0, qk, tg);
+  if (n_it > 1) load_scales(sc, scales, 1, ra0, R, nb, qk);
+#pragma unroll 1
+  for (int it = 0; it < n_it; it += 2) {
+    issue_stage(sm, it, acc, a0);
+    if (it + 1 < n_it) {
+      convert_stage(sm, it + 1, a1, sc, row0, qk, tg);
+      if (it + 2 < n_it) load_scales(sc, scales, it + 2, ra0, R, nb, qk);
+    }
+    retire_stage(sm, it, acc);
+    if (it + 1 < n_it) {
+      issue_stage(sm, it + 1, acc, a1);
+      if (it + 2 < n_it) {
+        convert_stage(sm, it + 2, a0, sc, row0, qk, tg);
+        if (it + 3 < n_it) load_scales(sc, scales, it + 3, ra0, R, nb, qk);
+      }
+      retire_stage(sm, it + 1, acc);
+    }
+  }
+""", """  float sc[2][4], sn[2][4];
+  uint32_t a0[4][4];
+  const int ra0 = r0 + row0;
+  load_scales(sc, scales, 0, ra0, R, nb, qk);
+#pragma unroll 1
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) load_scales(sn, scales, it + 1, ra0, R, nb, qk);
+    convert_stage(sm, it, a0, sc, row0, qk, tg);
+    issue_stage(sm, it, acc, a0);
+    retire_stage(sm, it, acc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[h][j] = sn[h][j];
+  }
+""")]
+STAGES4 = [("constexpr int STAGES = 5;", "constexpr int STAGES = 4;")]
+# K4: blocks of 64 query rows and 4 warps
+BQ64 = [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;"),
+        ("constexpr int BQ = 128;", "constexpr int BQ = 64;")]
+
+# K5 ablations, which give wrong results on purpose and say where the time
+# goes: the dequant replaced by a register move (codes, loads and scales
+# still read), one product per stage in place of four (the other three
+# fragments folded into it, so their conversion stays), and the epilogue
+# storing one of its 32 row groups
+NO_CONVERT = [(I2F[0][0], """  lo = c;
+  hi = c ^ s2;
+""")]
+ONE_PRODUCT = [("  for (int kk = 0; kk < 4; ++kk) wgmma_m64n256k16_rs(acc, a[kk], desc_sw128(xb + kk * 32));",
+                """  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = a[0][i] ^ a[1][i] ^ a[2][i] ^ a[3][i];
+  wgmma_m64n256k16_rs(acc, f, desc_sw128(xb));""")]
+NO_EPILOGUE = [("  for (int j = 0; j < BT / 8; ++j) {", "  for (int j = 0; j < 1; ++j) {")]
+
+QMM_VARIANTS = [("committed", []), ("i2f_dequant", I2F), ("serial_convert", SERIAL),
+                ("stages_4", STAGES4), ("ablate_no_convert", NO_CONVERT),
+                ("ablate_one_product", ONE_PRODUCT), ("ablate_no_epilogue", NO_EPILOGUE)]
+ENC_VARIANTS = [("committed", []), ("bq64_4warps", BQ64)]
+
+
+def build(name, tag, edits):
+    """Install a copy of csrc/<name>.cu with `edits` under the wrapper;
+    returns ptxas's register and spill lines."""
+    with open(os.path.join(CS, name + ".cu")) as f:
+        src = f.read()
+    for a, b in edits:
+        assert a in src, a
+        src = src.replace(a, b, 1)
+    _cuda.BUILD.mkdir(parents=True, exist_ok=True)
+    out = str(_cuda.BUILD / f"{name}_{tag}.cu")
+    with open(out, "w") as f:
+        f.write(src)
+    so = str(_cuda.BUILD / f"{name}_{tag}.so")
+    r = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", CS, "-o", so, out],
+                       check=True, capture_output=True, text=True)
+    _cuda._LIBS[name] = _cuda._bind(name, ctypes.CDLL(so))
+    return [ln.strip() for ln in (r.stdout + r.stderr).splitlines()
+            if "Used" in ln or "spill" in ln or "C7513" in ln]
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: no CUDA card")
+    # the same timer as chip_smoke.py phase 3, from the root of the checkout
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    from chip_smoke import device_ms
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(3)
+    N = 4096
+    xb = torch.randn((N, N), generator=g).to(dev, torch.bfloat16)
+    codes = torch.randint(-16, 16, (N, N), generator=g, dtype=torch.int8).to(dev)
+    scales = (0.02 * torch.rand((N, N // 32), generator=g)).to(dev)
+    ref = QM.qmm_plain(xb, codes, scales)
+    planes = {}
+
+    def plane(i):
+        if i not in planes:
+            planes[i] = (codes.clone(), scales.clone())
+        return planes[i]
+    for tag, edits in QMM_VARIANTS:
+        ptxas = build("qmm", tag, edits)
+        y = QM.qmm(xb, codes, scales)
+        torch.cuda.synchronize()
+        err = ((y - ref).abs().max() / ref.abs().max()).item()
+        ms = device_ms(lambda i: (lambda: QM.qmm(xb, *plane(i))), N * N * 7)
+        print(f"qmm[4096^3, bf16 x] {tag}: ms={ms:.5f} tflops={2 * N ** 3 / ms / 1e9:.1f} "
+              f"max_err/max_ref={err:.2e} ptxas={ptxas}", flush=True)
+    planes.clear()
+
+    T, true_len, H, D = 1536, 1500, 20, 64
+    qkv = torch.randn((T, 3 * H * D), generator=g).to(dev)
+    aref = EA.self_attention_qkv_plain(qkv, H, true_len=true_len).float()
+    bufs = {}
+    for tag, edits in ENC_VARIANTS:
+        ptxas = build("enc_attn", tag, edits)
+        for src in (qkv, qkv.to(torch.bfloat16)):
+            def buf(i, src=src):
+                if (src.dtype, i) not in bufs:
+                    bufs[src.dtype, i] = src.clone()
+                return bufs[src.dtype, i]
+            o = EA.self_attention_qkv(src, H, true_len=true_len)
+            torch.cuda.synchronize()
+            err = ((o.float() - aref).abs().max() / aref.abs().max()).item()
+            ms = device_ms(lambda i: (lambda: EA.self_attention_qkv(buf(i), H, true_len=true_len)),
+                          src.numel() * src.element_size())
+            print(f"self_attention_qkv[T={T}, {str(src.dtype)[6:]} qkv] {tag}: ms={ms:.5f} "
+                  f"max_err/max_ref={err:.2e}", flush=True)
+        print(f"  enc_attn {tag} ptxas={ptxas}", flush=True)
+        bufs.clear()
+
+
+if __name__ == "__main__":
+    main()
