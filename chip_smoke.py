@@ -416,48 +416,84 @@ def check_qmm(dev, QM):
                 flops=flops, err=err)
 
 
-def check_flash(dev, FA):
+def kernel_ptxas(log_text: str, kernel: str) -> list:
+    """One line per instantiation of `kernel` in an nvcc -Xptxas -v log:
+    its template arguments (int, float or bf16), registers, stack, spills
+    and shared memory as ptxas reports them (dynamic shared memory is not
+    listed)."""
+    import re
+
+    rows, cur = [], None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            cur = None
+            if kernel in line:
+                name = line.split("'")[1]
+                mangled = name[name.index(kernel) + len(kernel):].split("EEv")[0]
+                args = [m.group(1) or {"f": "float", "13__nv_bfloat16": "bf16"}[m.group(0)]
+                        for m in re.finditer(r"Li(\d+)E|13__nv_bfloat16|f", mangled)]
+                cur = [f"{kernel}<{', '.join(args)}>"]
+                rows.append(cur)
+        elif cur is not None and ("spill" in line or "Used" in line):
+            cur.append(line.split(":", 1)[-1].strip())
+    return [f"{r[0]}: " + "; ".join(r[1:]) for r in rows]
+
+
+def check_flash(dev, FA, ptxas: str):
     """K6 at turbo widths: H = 20 heads of 64, T = 1536 with 1500 real rows,
-    q, k and v passed as head views of the encoder's f32 (T, 3S) projection.
-    Real rows are compared; pad rows are junk."""
+    q, k and v passed as head views of the encoder's f32 (T, 3S) projection,
+    checked and timed on it and on its bf16 cast; then checked at D = 128
+    (10 heads, the same width).  Real rows are compared; pad rows are junk."""
+    for line in kernel_ptxas(ptxas, "flash_attn_kernel"):
+        log(f"  ptxas {line}")
     T, true_len, H, D = 1536, 1500, 20, 64
     S = H * D
     g = torch.Generator().manual_seed(4)
     qkv = torch.randn((T, 3 * S), generator=g).to(dev)
+    qkvb = qkv.to(torch.bfloat16)
 
-    def views(buf):
-        return [buf[:, i * S:(i + 1) * S].reshape(T, H, D).transpose(0, 1)
+    def views(buf, h=H):
+        return [buf[:, i * S:(i + 1) * S].reshape(T, h, S // h).transpose(0, 1)
                 for i in range(3)]
 
-    out = FA.flash_self_attention(*views(qkv), true_len=true_len)
-    ref = FA.flash_self_attention_plain(*views(qkv), true_len=true_len)
-    torch.cuda.synchronize()
-    assert torch.isfinite(out).all()
-    err = (out[:, :true_len] - ref[:, :true_len]).abs().max().item()
     tol = 2e-2
-    log(f"  check flash_self_attention[H={H},T={T},true_len={true_len},D={D}]: "
-        f"max_abs_err={err:.3e} tol={tol:.3e} (real rows)")
-    assert math.isfinite(err) and err <= tol
+    err = 0.0
+    for h in (H, 10):
+        for name, src in (("f32", qkv), ("bf16", qkvb)):
+            out = FA.flash_self_attention(*views(src, h), true_len=true_len)
+            ref = FA.flash_self_attention_plain(*views(src, h), true_len=true_len)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out).all()
+            e = (out[:, :true_len] - ref[:, :true_len]).abs().max().item()
+            log(f"  check flash_self_attention[H={h},T={T},true_len={true_len},D={S // h},"
+                f"{name} qkv]: max_abs_err={e:.3e} tol={tol:.3e} (real rows)")
+            assert math.isfinite(e) and e <= tol
+            if h == H:
+                err = max(err, e)
+    assert same_under_graph(lambda: FA.flash_self_attention(*views(qkv), true_len=true_len))
+    log("  check flash_self_attention: bit-identical over two calls and a CUDA-graph replay")
     # q, k, v read once (f32), the f32 output written once; the work is the
     # two segments: real rows against real keys, pad rows against pad keys
     nbytes = 3 * T * S * 4 + T * S * 4
     flops = 4.0 * H * D * (true_len ** 2 + (T - true_len) ** 2)
     bufs = {}
 
-    def buf(i):
-        if i not in bufs:
-            bufs[i] = views(qkv.clone())
-        return bufs[i]
+    def buf(src, i):
+        if (src.dtype, i) not in bufs:
+            bufs[src.dtype, i] = views(src.clone())
+        return bufs[src.dtype, i]
 
-    def run_kernel(i):
-        q, k, v = buf(i)
-        return lambda: FA.flash_self_attention(q, k, v, true_len=true_len)
+    def run_kernel(src):
+        def make(i):
+            q, k, v = buf(src, i)
+            return lambda: FA.flash_self_attention(q, k, v, true_len=true_len)
+        return make
 
     def run_plain(i):
-        q, k, v = buf(i)
+        q, k, v = buf(qkv, i)
         return lambda: FA.flash_self_attention_plain(q, k, v, true_len=true_len)
 
-    heads = [h.to(torch.bfloat16).contiguous() for h in views(qkv)]
+    heads = [h.contiguous() for h in views(qkvb)]
     real = torch.arange(T, device=dev) < true_len
     allow = real[:, None] == real[None, :]
     lib = {}
@@ -469,14 +505,18 @@ def check_flash(dev, FA):
         return lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=allow)
 
-    ms = device_ms(run_kernel, nbytes)
+    ms = device_ms(run_kernel(qkv), nbytes)
+    ms_bf16 = device_ms(run_kernel(qkvb), nbytes - 3 * T * S * 2)
     plain_ms = device_ms(run_plain, nbytes)
     library_ms = device_ms(run_library, 4 * T * S * 2)
     bufs.clear()
     lib.clear()
     b_ms, by = bound_ms(nbytes, flops)
-    log(f"  time  flash_self_attention[T={T}]: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} "
-        f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) launches_per_encode=32")
+    log(f"  time  flash_self_attention[T={T}]: kernel_ms={ms:.5f} (f32 qkv) "
+        f"kernel_bf16_qkv_ms={ms_bf16:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by}) launches_per_encode=32 "
+        f"per_encode_ms={32 * ms:.4f} tflops={flops / ms / 1e9:.1f} "
+        f"target_2.5ms_per_encode_met={32 * ms <= 2.5} half_bound_met={ms <= 2 * b_ms}")
     # the JSON row: one encode's 32 layers, as K4's
     return dict(ms=32 * ms, plain_ms=32 * plain_ms, library_ms=32 * library_ms,
                 bytes=32 * nbytes, flops=32 * flops, err=err)
@@ -857,7 +897,7 @@ def main() -> int:
     k3 = check_self_attend_q8(dev, DA)
     k4 = check_self_attention_qkv(dev, EA)
     k5 = check_qmm(dev, QM)
-    k6 = check_flash(dev, FA)
+    k6 = check_flash(dev, FA, info["flash_attn"]["ptxas"])
 
     log("== 4. paths: q5_0 large-v3-turbo, load() + transcribe(), flash encode, "
         "whisper-cli, whisper-bench")

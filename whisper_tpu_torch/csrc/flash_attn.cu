@@ -1,4 +1,5 @@
-// Non-causal flash attention in two segments, on the tensor cores.
+// Non-causal flash attention in two segments, on Hopper's warpgroup tensor
+// cores (wgmma).
 //
 // Replaces the TPU kernel that whisper_tpu/ops/attention.py
 // flash_self_attention reaches: the library Pallas flash_attention with
@@ -17,132 +18,216 @@
 //
 // What bounds it on an H100: operations.  Whisper's encoder at
 // large-v3-turbo (20 heads of 64, T = 1536, 1500 real) is 4 * H * D *
-// (1500^2 + 36^2) = 11.5 GFLOP per layer against a few MB of inputs.
+// (1500^2 + 36^2) = 11.5 GFLOP per layer against a few MB of inputs; only
+// wgmma reaches the tensor cores' full rate.
 //
-// Design (FlashAttention-2): one block of 4 warps per (64 query rows, head);
-// each warp owns 16 query rows, whose bf16 q fragments stay in registers.
-// Key and value tiles of 64 rows are rounded to bf16 into shared memory
-// (values transposed, so both products read 32-bit fragments), S = q k^T
-// and acc += P V run on mma.sync m16n8k16, and the S accumulators are
-// repacked in registers as the A operand of the P V product.  q, k and v
-// are read through strides, so the encoder hands over head views of its
-// fused (T, 3S) projection with no copy, and the output is written through
-// strides too.
-#include "common.cuh"
+// Design: one block of two warpgroups (256 threads) per (128 query rows,
+// head); each warpgroup owns 64 query rows.  The block's threads read q, k
+// and v through the strides with 16-byte loads (f32, or bf16 in 8-byte
+// halves), round them to bf16 (cvt.rn.bf16x2.f32) and store them to shared
+// memory with the 128-byte swizzle, 64 columns per 128-byte row:
+//   - q once, as the K-major A operand of S = q K^T for the whole key loop
+//     (in registers, as a loop-invariant register A, ptxas gave its
+//     registers to P at head dimension 64: csrc/wgmma.cuh);
+//   - the two warpgroups share every key and value tile of BKV keys.  K and
+//     V have the same layout: K is the K-major B operand of S, V the
+//     MN-major (transposed) B operand of acc += P V, so nothing is stored
+//     transposed;
+//   - tiles are double-buffered: the global loads of tile j + 1 go out into
+//     registers before the products of tile j and are stored while its P V
+//     product runs, with one block barrier per tile;
+//   - S is wgmma m64n{BKV}k16 over D / 16 k-steps.  The mask, the running
+//     max and the sum run on the accumulator in registers (quad shuffles);
+//     P is rounded to bf16 and repacked in registers as the A operand of
+//     wgmma m64n{D}k16.
+//   - In a block whose rows are all real, key tiles wholly at or past n_real
+//     add exact zeros (p = exp(mask) = 0, the rescale is 1) and are skipped.
+// q, k and v are read through strides, so the encoder hands over head views
+// of its fused (T, 3S) projection with no copy, and the output is written
+// through strides too.
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int BQ = 64;   // query rows per block (16 per warp)
-constexpr int BKV = 64;  // key rows per tile
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int BQ = 128;        // query rows per block (64 per warpgroup)
+constexpr int BKV = 64;        // keys per tile
 constexpr float kMask = -0.7f * 3.4028234663852886e38f;
 
-__device__ __forceinline__ void load2(const float* p, float* f) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  f[0] = v.x; f[1] = v.y;
+// byte offset of 16-byte chunk c (bf16 columns 8c .. 8c + 7) of row r in a
+// tile of ROWS rows: column block c / 8 holds ROWS rows of 128 bytes, the
+// chunks of a row swizzled within each 8-row group
+template <int ROWS>
+__device__ __forceinline__ int swz128(int r, int c) {
+  return (c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float* f) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  f[0] = __low2float(v); f[1] = __high2float(v);
-}
-__device__ __forceinline__ void load4(const float* p, float* f) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+
+// 8 consecutive elements of a key row, held between the global load and the
+// bf16 store to shared memory
+template <typename TIn> struct Chunk;
+template <> struct Chunk<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ uint4 bf16() const {
+    return make_uint4(wtt_pack_bf16(a.x, a.y), wtt_pack_bf16(a.z, a.w),
+                      wtt_pack_bf16(b.x, b.y), wtt_pack_bf16(b.z, b.w));
+  }
+};
+template <> struct Chunk<__nv_bfloat16> {
+  uint2 a, b;  // 8-byte halves: rows are only 4-element aligned
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    a = *reinterpret_cast<const uint2*>(p);
+    b = *reinterpret_cast<const uint2*>(p + 4);
+  }
+  __device__ __forceinline__ void zero() { a = b = make_uint2(0u, 0u); }
+  __device__ __forceinline__ uint4 bf16() const { return make_uint4(a.x, a.y, b.x, b.y); }
+};
+
+// This thread's share of one key tile and one value tile.  Keys at or past
+// T read zeros.
+template <int D, typename TIn>
+struct TileRegs {
+  static constexpr int CPR = D / 8;               // chunks per key row
+  static constexpr int N = BKV * CPR / kThreads;  // chunks per thread, of K and of V
+  Chunk<TIn> k[N], v[N];
+
+  __device__ __forceinline__ void load(const TIn* kh, const TIn* vh, long long k_t,
+                                       long long v_t, int kv0, int T) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) f[i] = __bfloat162float(e[i]);
-}
+    for (int i = 0; i < N; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int key = kv0 + c / CPR, d = (c % CPR) * 8;
+      if (key < T) {
+        k[i].load(kh + key * k_t + d);
+        v[i].load(vh + key * v_t + d);
+      } else {
+        k[i].zero();
+        v[i].zero();
+      }
+    }
+  }
+  __device__ __forceinline__ void store(uint8_t* ks, uint8_t* vs) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      const int off = swz128<BKV>(c / CPR, c % CPR);
+      *reinterpret_cast<uint4*>(ks + off) = k[i].bf16();
+      *reinterpret_cast<uint4*>(vs + off) = v[i].bf16();
+    }
+  }
+};
 
 struct Strides {
   long long q_h, q_t, k_h, k_t, v_h, v_t, o_h, o_t;
 };
 
+// q, then K and V double-buffered, + alignment
+template <int D>
+constexpr int smem_bytes() {
+  return (BQ + 2 * 2 * BKV) * D * 2 + 1024;
+}
+
+// the block's BQ rows of q, rounded to bf16 into shared memory; rows at or
+// past T are zeros
 template <int D, typename TIn>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store_q(uint8_t* qs, const TIn* qh, long long q_t, int q0, int T) {
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int i = 0; i < BQ * CPR / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int row = c / CPR;
+    Chunk<TIn> x;
+    if (q0 + row < T) x.load(qh + (q0 + row) * q_t + (c % CPR) * 8);
+    else x.zero();
+    *reinterpret_cast<uint4*>(qs + swz128<BQ>(row, c % CPR)) = x.bf16();
+  }
+}
+
+// Blocks per SM: two for bf16 input at D = 64 (128 registers a thread);
+// f32 input keeps its tile prefetch in twice the registers and spills at
+// that cap, so it takes one (utils/kernel_variants.py times both)
+template <int D, typename TIn>
+__global__ void __launch_bounds__(kThreads, D == 64 && sizeof(TIn) == 2 ? 2 : 1)
 flash_attn_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                   const TIn* __restrict__ v, float* __restrict__ out, int T, int n_real,
                   Strides st, float sm_scale) {
-  constexpr int KS = D / 16;   // k-steps of the q k^T product
-  constexpr int NS = BKV / 8;  // n-tiles of S
-  constexpr int ND = D / 8;    // n-tiles of the output
-  __shared__ __align__(16) __nv_bfloat16 Ks[BKV][D + 8];
-  __shared__ __align__(16) __nv_bfloat16 Vt[D][BKV + 8];
+  constexpr int KS = D / 16;         // k-steps of S = q K^T
+  constexpr int NS = BKV / 8;        // 8-column groups of S
+  constexpr int ND = D / 8;          // 8-column groups of the output
+  constexpr int TILE = BKV * D * 2;  // bytes of one bf16 key or value tile
+  extern __shared__ uint8_t smem_raw[];
+  // [q | K0 | V0 | K1 | V1], 1024-byte aligned for the swizzle
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sm = qs + BQ * D * 2;
 
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.y, tid = threadIdx.x;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;  // warp within its warpgroup
   const int g = lane >> 2, tg = lane & 3;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g, r1 = r0 + 8;
+  const int q0 = blockIdx.x * BQ;
+  const int r0 = q0 + (tid >> 7) * 64 + warp * 16 + g, r1 = r0 + 8;
   const TIn* qh = q + h * st.q_h;
   const TIn* kh = k + h * st.k_h;
   const TIn* vh = v + h * st.v_h;
 
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int d0 = kk * 16 + tg * 2;
-    float a[2] = {0.f, 0.f}, b[2] = {0.f, 0.f}, c[2] = {0.f, 0.f}, e[2] = {0.f, 0.f};
-    if (r0 < T) { load2(qh + r0 * st.q_t + d0, a); load2(qh + r0 * st.q_t + d0 + 8, c); }
-    if (r1 < T) { load2(qh + r1 * st.q_t + d0, b); load2(qh + r1 * st.q_t + d0 + 8, e); }
-    qf[kk][0] = wtt_pack_bf16(a[0], a[1]);
-    qf[kk][1] = wtt_pack_bf16(b[0], b[1]);
-    qf[kk][2] = wtt_pack_bf16(c[0], c[1]);
-    qf[kk][3] = wtt_pack_bf16(e[0], e[1]);
-  }
   const bool real0 = r0 < n_real, real1 = r1 < n_real;
+  const bool all_real = q0 + BQ <= n_real;
+  const int n_tiles = ((all_real ? n_real : T) + BKV - 1) / BKV;
 
-  float acc[ND][4];
+  float acc[ND * 4];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int i = 0; i < ND * 4; ++i) acc[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int kv0 = 0; kv0 < T; kv0 += BKV) {
-    __syncthreads();  // the previous tile has been read
-    for (int i = tid; i < BKV * D / 4; i += kThreads) {
-      const int key = i / (D / 4), d = (i % (D / 4)) * 4;  // K: d fastest
-      float f[4] = {0.f, 0.f, 0.f, 0.f};
-      if (kv0 + key < T) load4(kh + (kv0 + key) * st.k_t + d, f);
-      uint2 w = make_uint2(wtt_pack_bf16(f[0], f[1]), wtt_pack_bf16(f[2], f[3]));
-      *reinterpret_cast<uint2*>(&Ks[key][d]) = w;
-    }
-    for (int i = tid; i < BKV * D / 4; i += kThreads) {
-      const int key = i % BKV, d = (i / BKV) * 4;          // V: key fastest
-      float f[4] = {0.f, 0.f, 0.f, 0.f};
-      if (kv0 + key < T) load4(vh + (kv0 + key) * st.v_t + d, f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) Vt[d + e][key] = __float2bfloat16_rn(f[e]);
-    }
-    __syncthreads();
+  store_q<D>(qs, qh, st.q_t, q0, T);
+  // this warpgroup's 64 rows of q
+  const uint32_t qa = smem_addr(qs) + (tid >> 7) * 64 * 128;
+  TileRegs<D, TIn> tile;
+  tile.load(kh, vh, st.k_t, st.v_t, 0, T);
+  tile.store(sm, sm + TILE);
+  fence_proxy_async();
+  __syncthreads();
 
-    float s[NS][4];
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int kv0 = jt * BKV;
+    const uint32_t kb = smem_addr(sm + (jt & 1) * 2 * TILE), vb = kb + TILE;
+    const bool more = jt + 1 < n_tiles;
+    if (more) tile.load(kh, vh, st.k_t, st.v_t, kv0 + BKV, T);
+
+    // S = q K^T: a k-step is 32 bytes along the 128-byte rows of q and K;
+    // columns 64 on are the next column block, BQ (q) or BKV (K) rows on
+    float s[NS * 4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int i = 0; i < NS * 4; ++i) s[i] = 0.f;
+    fence_acc<NS * 4>(s);
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(&Ks[j * 8 + g][kk * 16 + tg * 2]);
-        b[1] = *reinterpret_cast<const uint32_t*>(&Ks[j * 8 + g][kk * 16 + tg * 2 + 8]);
-        wtt_mma_bf16(s[j], qf[kk], b);
-      }
+      wgmma_m64k16_ss<BKV, 0>(s, desc_sw128(qa + (kk >> 2) * BQ * 128 + (kk & 3) * 32),
+                              desc_sw128(kb + (kk >> 2) * BKV * 128 + (kk & 3) * 32), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<NS * 4>(s);
 
+    // s[4j + e]: row r0 (e < 2) or r1, key kv0 + 8j + 2tg + (e & 1)
+    const bool plain = all_real && kv0 + BKV <= n_real;  // no score masked
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + j * 8 + tg * 2 + (e & 1);
-        const bool row_real = e < 2 ? real0 : real1;
-        const float sv = s[j][e] * sm_scale;
-        s[j][e] = col >= T ? kMask : ((col < n_real) == row_real ? sv : sv + kMask);
-        if (e < 2) mx0 = fmaxf(mx0, s[j][e]); else mx1 = fmaxf(mx1, s[j][e]);
+        float sv = s[4 * j + e] * sm_scale;
+        if (!plain) {
+          const int col = kv0 + j * 8 + tg * 2 + (e & 1);
+          const bool row_real = e < 2 ? real0 : real1;
+          sv = col >= T ? kMask : ((col < n_real) == row_real ? sv : sv + kMask);
+        }
+        s[4 * j + e] = sv;
+        if (e < 2) mx0 = fmaxf(mx0, sv); else mx1 = fmaxf(mx1, sv);
       }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -154,10 +239,10 @@ flash_attn_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
-      s[j][0] = expf(s[j][0] - mn0); s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1); s[j][3] = expf(s[j][3] - mn1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
+      s[4 * j] = expf(s[4 * j] - mn0); s[4 * j + 1] = expf(s[4 * j + 1] - mn0);
+      s[4 * j + 2] = expf(s[4 * j + 2] - mn1); s[4 * j + 3] = expf(s[4 * j + 3] - mn1);
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -170,36 +255,50 @@ flash_attn_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
     m1 = mn1;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      acc[j][0] *= al0; acc[j][1] *= al0;
-      acc[j][2] *= al1; acc[j][3] *= al1;
+      acc[4 * j] *= al0; acc[4 * j + 1] *= al0;
+      acc[4 * j + 2] *= al1; acc[4 * j + 3] *= al1;
     }
-
+    // bf16(p) as A fragments, 16 keys (two 8-column groups) per k-step
+    uint32_t pa[BKV / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = wtt_pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = wtt_pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = wtt_pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = wtt_pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(&Vt[j * 8 + g][kk * 16 + tg * 2]);
-        b[1] = *reinterpret_cast<const uint32_t*>(&Vt[j * 8 + g][kk * 16 + tg * 2 + 8]);
-        wtt_mma_bf16(acc[j], a, b);
-      }
+      pa[kk][0] = wtt_pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = wtt_pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = wtt_pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = wtt_pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
+
+    // acc += P V: V read MN-major, a k-step is 16 key rows (2048 bytes);
+    // columns 64 on are the next column block, BKV rows on (LBO)
+    fence_acc<ND * 4>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_m64k16_rs<D, 1>(acc, pa[kk], desc_sw128_mn(vb + kk * 2048, BKV * 128), 1);
+    wgmma_commit();
+    if (more) {
+      // the other buffer was last read by tile jt - 1's products, which
+      // retired before the barrier that ended it
+      uint8_t* nk = sm + ((jt + 1) & 1) * 2 * TILE;
+      tile.store(nk, nk + TILE);
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fence_acc<ND * 4>(acc);
+    __syncthreads();
   }
 
+  // acc[4j + e]: row r0 (e < 2) or r1, column 8j + 2tg + (e & 1)
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
     const int d = j * 8 + tg * 2;
     if (r0 < T) {
-      float2 o = make_float2(wtt_round_bf16(acc[j][0] / l0), wtt_round_bf16(acc[j][1] / l0));
+      float2 o = make_float2(wtt_round_bf16(acc[4 * j] / l0), wtt_round_bf16(acc[4 * j + 1] / l0));
       *reinterpret_cast<float2*>(out + h * st.o_h + r0 * st.o_t + d) = o;
     }
     if (r1 < T) {
-      float2 o = make_float2(wtt_round_bf16(acc[j][2] / l1), wtt_round_bf16(acc[j][3] / l1));
+      float2 o = make_float2(wtt_round_bf16(acc[4 * j + 2] / l1),
+                             wtt_round_bf16(acc[4 * j + 3] / l1));
       *reinterpret_cast<float2*>(out + h * st.o_h + r1 * st.o_t + d) = o;
     }
   }
@@ -208,8 +307,11 @@ flash_attn_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
 template <int D, typename TIn>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int H, int T,
                    int n_real, const Strides& st, float sm_scale, cudaStream_t stream) {
+  static size_t smem_allowed = 0;
+  cudaError_t err = wtt_allow_smem(flash_attn_kernel<D, TIn>, smem_bytes<D>(), &smem_allowed);
+  if (err != cudaSuccess) return err;
   dim3 grid((T + BQ - 1) / BQ, H);
-  flash_attn_kernel<D, TIn><<<grid, kThreads, 0, stream>>>(
+  flash_attn_kernel<D, TIn><<<grid, kThreads, smem_bytes<D>(), stream>>>(
       static_cast<const TIn*>(q), static_cast<const TIn*>(k), static_cast<const TIn*>(v),
       static_cast<float*>(out), T, n_real, st, sm_scale);
   return cudaGetLastError();

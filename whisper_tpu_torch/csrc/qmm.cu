@@ -49,7 +49,7 @@
 //   - No split-K: two calls give bit-identical results.
 #include <cuda.h>
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -64,10 +64,6 @@ constexpr int X_BYTES = BT * BK * 2;         // 32768
 constexpr int C_BYTES = BR * BK;             // 8192
 constexpr int STAGE_BYTES = X_BYTES + C_BYTES;  // 40960, a multiple of 1024
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
@@ -104,62 +100,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
-}
-
-// wgmma descriptor of a K-major bf16 tile with 128-byte swizzle: rows of
-// 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO unused
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-// d[64 x 256] += a[64 x 16] (registers, bf16) . b[16 x 256] (shared, K-major)
-__device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a, uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
-        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
-        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
-        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// keeps the compiler from moving accumulator reads or writes across the
-// asynchronous products
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // byte offset of (row, byte) in a tile of 64-byte rows written by TMA with
@@ -243,17 +183,17 @@ __device__ __forceinline__ void convert_stage(const Smem& sm, int it, uint32_t (
 __device__ __forceinline__ void issue_stage(const Smem& sm, int it, float* acc,
                                             const uint32_t (&a)[4][4]) {
   const uint32_t xb = smem_addr(sm.x(it % STAGES));
-  fence_acc(acc);
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  fence_acc<128>(acc);
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_m64n256k16_rs(acc, a[kk], desc_sw128(xb + kk * 32));
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  for (int kk = 0; kk < 4; ++kk) wgmma_m64n256k16_rs<0>(acc, a[kk], desc_sw128(xb + kk * 32), 1);
+  wgmma_commit();
 }
 
 // wait for the group to retire, then hand the stage back to the producer
 __device__ __forceinline__ void retire_stage(const Smem& sm, int it, float* acc) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_acc(acc);
+  wgmma_wait<0>();
+  fence_acc<128>(acc);
   if ((threadIdx.x & 31) == 0) mbar_arrive(sm.empty(it % STAGES));
 }
 

@@ -1,8 +1,11 @@
-"""Device times of the dequantize x matmul (csrc/qmm.cu) and of the
-encoder's fused-QKV attention (csrc/enc_attn.cu) against variants of their
-designs that were tried and dropped.
+"""Device times of the dequantize x matmul (csrc/qmm.cu), of the encoder's
+fused-QKV attention (csrc/enc_attn.cu) and of the flash attention
+(csrc/flash_attn.cu) against variants of their designs that were tried and
+dropped.
 
-    python -m whisper_tpu_torch.utils.kernel_variants      # on the card
+    python -m whisper_tpu_torch.utils.kernel_variants [qmm] [enc_attn] [flash_attn]
+
+on the card; with no argument it times all three.
 
 Each variant is a copy of the source with a few text edits (each anchored on
 a line of the source, so a changed source fails loudly here), built with the
@@ -12,9 +15,9 @@ purpose, so their error is large; they say where the time goes.  Each
 variant's error against the plain version is printed and it is timed at
 the shapes chip_smoke.py times, with its timer (`device_ms`: CUDA events
 around CUDA-graph replays of calls on input copies that rotate past the
-50 MB L2): qmm at 4096^3 on bf16 x, self_attention_qkv at large-v3-turbo's
-T = 1536, true_len = 1500 on the f32 projection and on bf16.  The kernels
-of the package are not changed.
+50 MB L2): qmm at 4096^3 on bf16 x, self_attention_qkv and
+flash_self_attention at large-v3-turbo's T = 1536, true_len = 1500 on the
+f32 projection and on bf16.  The kernels of the package are not changed.
 """
 import ctypes
 import os
@@ -25,6 +28,7 @@ from pathlib import Path
 import torch
 
 from ..ops import _cuda
+from ..ops import attention as FA
 from ..ops import enc_attn as EA
 from ..ops import qmm as QM
 
@@ -101,17 +105,29 @@ BQ64 = [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;"),
 NO_CONVERT = [(I2F[0][0], """  lo = c;
   hi = c ^ s2;
 """)]
-ONE_PRODUCT = [("  for (int kk = 0; kk < 4; ++kk) wgmma_m64n256k16_rs(acc, a[kk], desc_sw128(xb + kk * 32));",
+ONE_PRODUCT = [("  for (int kk = 0; kk < 4; ++kk) wgmma_m64n256k16_rs<0>(acc, a[kk], desc_sw128(xb + kk * 32), 1);",
                 """  uint32_t f[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) f[i] = a[0][i] ^ a[1][i] ^ a[2][i] ^ a[3][i];
-  wgmma_m64n256k16_rs(acc, f, desc_sw128(xb));""")]
+  wgmma_m64n256k16_rs<0>(acc, f, desc_sw128(xb), 1);""")]
 NO_EPILOGUE = [("  for (int j = 0; j < BT / 8; ++j) {", "  for (int j = 0; j < 1; ++j) {")]
 
 QMM_VARIANTS = [("committed", []), ("i2f_dequant", I2F), ("serial_convert", SERIAL),
                 ("stages_4", STAGES4), ("ablate_no_convert", NO_CONVERT),
                 ("ablate_one_product", ONE_PRODUCT), ("ablate_no_epilogue", NO_EPILOGUE)]
 ENC_VARIANTS = [("committed", []), ("bq64_4warps", BQ64)]
+# K6: key tiles of 128 (one block per SM), two blocks per SM at D = 64 for
+# f32 input too, and no prefetch (tile j + 1 loaded after tile j's products)
+FLASH_LB0 = "__global__ void __launch_bounds__(kThreads, D == 64 && sizeof(TIn) == 2 ? 2 : 1)"
+FLASH_LB = (FLASH_LB0, "__global__ void __launch_bounds__(kThreads, 1)")
+FLASH_LB2 = (FLASH_LB0, "__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)")
+FLASH_LOAD = "    if (more) tile.load(kh, vh, st.k_t, st.v_t, kv0 + BKV, T);\n"
+FLASH_STORE = "      uint8_t* nk = sm + ((jt + 1) & 1) * 2 * TILE;\n"
+FLASH_VARIANTS = [("committed", []),
+                  ("bkv128", [("constexpr int BKV = 64;", "constexpr int BKV = 128;"), FLASH_LB]),
+                  ("two_blocks_per_sm", [FLASH_LB2]),
+                  ("no_prefetch", [(FLASH_LOAD, ""),
+                                   (FLASH_STORE, FLASH_STORE + FLASH_LOAD.replace("    if (more) ", "      "))])]
 
 
 def build(name, tag, edits):
@@ -134,7 +150,7 @@ def build(name, tag, edits):
             if "Used" in ln or "spill" in ln or "C7513" in ln]
 
 
-def main():
+def main(which=("qmm", "enc_attn", "flash_attn")):
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA card")
     # the same timer as chip_smoke.py phase 3, from the root of the checkout
@@ -142,6 +158,15 @@ def main():
     from chip_smoke import device_ms
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(3)
+    if "qmm" in which:
+        time_qmm(dev, g, device_ms)
+    if "enc_attn" in which:
+        time_enc_attn(dev, g, device_ms)
+    if "flash_attn" in which:
+        time_flash_attn(dev, device_ms)
+
+
+def time_qmm(dev, g, device_ms):
     N = 4096
     xb = torch.randn((N, N), generator=g).to(dev, torch.bfloat16)
     codes = torch.randint(-16, 16, (N, N), generator=g, dtype=torch.int8).to(dev)
@@ -163,6 +188,8 @@ def main():
               f"max_err/max_ref={err:.2e} ptxas={ptxas}", flush=True)
     planes.clear()
 
+
+def time_enc_attn(dev, g, device_ms):
     T, true_len, H, D = 1536, 1500, 20, 64
     qkv = torch.randn((T, 3 * H * D), generator=g).to(dev)
     aref = EA.self_attention_qkv_plain(qkv, H, true_len=true_len).float()
@@ -185,5 +212,42 @@ def main():
         bufs.clear()
 
 
+def time_flash_attn(dev, device_ms):
+    """K6 as chip_smoke.py phase 3 times it: head views of the (T, 3S)
+    projection, f32 and bf16, each variant checked against the plain
+    version on real rows (tolerance 2e-2) and at D = 128 (10 heads)."""
+    T, true_len, H, D = 1536, 1500, 20, 64
+    S = H * D
+    qkv = torch.randn((T, 3 * S), generator=torch.Generator().manual_seed(4)).to(dev)
+
+    def views(buf, h=H):
+        return [buf[:, i * S:(i + 1) * S].reshape(T, h, S // h).transpose(0, 1)
+                for i in range(3)]
+
+    refs = {(src.dtype, h): FA.flash_self_attention_plain(*views(src, h), true_len=true_len)
+            for src in (qkv, qkv.to(torch.bfloat16)) for h in (H, 10)}
+    bufs = {}
+    for tag, edits in FLASH_VARIANTS:
+        ptxas = build("flash_attn", tag, edits)
+        for src in (qkv, qkv.to(torch.bfloat16)):
+            err = 0.0
+            for h in (H, 10):
+                o = FA.flash_self_attention(*views(src, h), true_len=true_len)
+                torch.cuda.synchronize()
+                err = max(err, (o - refs[src.dtype, h])[:, :true_len].abs().max().item())
+
+            def buf(i, src=src):
+                if (src.dtype, i) not in bufs:
+                    bufs[src.dtype, i] = views(src.clone())
+                return bufs[src.dtype, i]
+            ms = device_ms(lambda i: (lambda: FA.flash_self_attention(*buf(i), true_len=true_len)),
+                           4 * T * S * src.element_size())
+            print(f"flash_self_attention[T={T}, {str(src.dtype)[6:]} qkv] {tag}: ms={ms:.5f} "
+                  f"per_encode_ms={32 * ms:.4f} max_abs_err={err:.2e} (D=64 and D=128)",
+                  flush=True)
+        print(f"  flash_attn {tag} ptxas={ptxas}", flush=True)
+        bufs.clear()
+
+
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:] or ("qmm", "enc_attn", "flash_attn"))
