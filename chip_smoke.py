@@ -15,12 +15,17 @@ Phases (any failure exits non-zero; nothing is caught):
   4. the paths, each with every launch count set to 0 just before it and
      read just after: a q5_0 large-v3-turbo file written from a seed,
      `whisper_tpu_torch.load()` + `transcribe()` of 40 s of seeded audio
-     with default parameters (kv cache q8, then f16), one 30 s window of
-     the q8 context under torch.profiler (device busy share, device time by
-     kernel), one 30 s encode on the flash route (WTPU_ENC_ATTN=flash)
-     against the fused-QKV route, the port's whisper-cli at its default
-     flags (beam search 5, best-of 5) on the same file and audio as a wav
-     (kv cache f16, then q8), and whisper-bench -w 1 and -w 2;
+     with default parameters (kv cache q8, then f16; five timed runs, the
+     window loop's CUDA graphs' flag reads, captures and ms per token),
+     one window through the window loop's graphs against its eager loop,
+     one 30 s window of the q8 context under torch.profiler on the graphs
+     and on the eager loop (device busy share, device time by kernel), its
+     window-loop time at 1, 2, 4, 8 and 16 steps per read of the done
+     flag, one beam-search window of the f16 context under the profiler,
+     one 30 s encode on the flash route (WTPU_ENC_ATTN=flash) against the
+     fused-QKV route, the port's whisper-cli at its default flags (beam
+     search 5, best-of 5) on the same file and audio as a wav (kv cache
+     f16, then q8), and whisper-bench -w 1 and -w 2;
   5. the slice on the card against the slice on the CPU, on a small
      decisive model: identical segments, greedy and beam search, on the
      fused-QKV and the flash encoder routes and on -nfa's plain graphs.
@@ -31,6 +36,8 @@ The last lines are the kernels JSON, the card's name and power limit, and
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import os
@@ -608,7 +615,17 @@ def seeded_audio(seconds: float, seed: int) -> np.ndarray:
     return (tone + 0.05 * rng.standard_normal(n)).astype(np.float32)
 
 
-def run_main_path(W, counters, path: str, kv_itype: str, pcm: np.ndarray):
+def window_fns(ctx):
+    return list(ctx._window_fns.values())
+
+
+def run_main_path(W, counters, path: str, kv_itype: str, pcm: np.ndarray,
+                  repeats: int = 5):
+    """load() + transcribe() of `pcm`: the first timed run's counts and
+    launches, and the wall of `repeats` timed runs (median, min, max: the
+    host sets the wall, and it spreads)."""
+    from whisper_tpu_torch.decoding import device_loop as DL
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ctx = W.load(path, kv_itype=kv_itype)
@@ -623,31 +640,49 @@ def run_main_path(W, counters, path: str, kv_itype: str, pcm: np.ndarray):
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
     ctx.timings.reset()
-    for fn in ctx._window_fns.values():
-        fn.readbacks = 0
+    for fn in window_fns(ctx):
+        fn.readbacks = fn.windows = fn.steps = 0
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
     segs = W.transcribe(ctx, W.TranscribeParams(), pcm)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    walls = [time.perf_counter() - t0]
     launches = {fn.__name__: fn.launches for fn in counters}
-    tm = ctx.timings
+    tm = copy.copy(ctx.timings)
+    fns = window_fns(ctx)
+    windows = sum(fn.windows for fn in fns)
+    readbacks = sum(fn.readbacks for fn in fns)
+    steps = sum(fn.steps for fn in fns)
+    for _ in range(repeats - 1):
+        t0 = time.perf_counter()
+        again = W.transcribe(ctx, W.TranscribeParams(), pcm)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        assert [(s.t0, s.t1, s.text) for s in again] == [(s.t0, s.t1, s.text) for s in segs]
     log(f"  [{kv_itype}] load_s={t_load:.3f} warmup_3s_wall_s={t_warm:.3f} "
-        f"transcribe_wall_s={wall:.3f} segments={len(segs)} windows={tm.n_encode}")
+        f"transcribe_wall_s median={float(np.median(walls)):.3f} min={min(walls):.3f} "
+        f"max={max(walls):.3f} runs={len(walls)} all={[round(w, 3) for w in walls]} "
+        f"segments={len(segs)} windows={tm.n_encode}")
     for s in segs[:5]:
         log(f"    [{s.t0:6d} -> {s.t1:6d}] {s.text!r} tokens={[t.id for t in s.tokens]}")
-    readbacks = sum(fn.readbacks for fn in ctx._window_fns.values())
     # t=0 attempts run the device window loop (t_decode: one lane, prompt
-    # pass included); t>0 fallbacks run the host loop (t_batchd: one
-    # batched step of best_of lanes, t_sample: its host-side filters)
+    # pass included, graph captures not); t>0 fallbacks run the host loop
+    # (t_batchd: one batched step of best_of lanes, t_sample: its
+    # host-side filters).  Counts are the first timed run's.
     log(f"  [{kv_itype}] encode_ms_per_window={ms_per(tm.t_encode_us, tm.n_encode):.3f} "
         f"device_loop_ms_per_token={ms_per(tm.t_decode_us, tm.n_decode):.3f} "
-        f"device_loop_tokens={tm.n_decode} device_loop_readbacks={readbacks} "
+        f"device_loop_tokens={tm.n_decode} device_loop_windows={windows} "
+        f"device_loop_steps={steps} device_loop_readbacks={readbacks} "
+        f"graphs_captured={tm.n_capture} capture_ms={tm.t_capture_us / 1e3:.3f} "
         f"host_loop_ms_per_step={ms_per(tm.t_batchd_us, tm.n_batchd):.3f} "
         f"host_loop_steps={tm.n_batchd} host_sample_ms={tm.t_sample_us / 1e3:.3f} "
         f"fallbacks={tm.n_fail_p} max_memory_allocated={torch.cuda.max_memory_allocated()}")
     log(f"  [{kv_itype}] launches={json.dumps(launches)}")
+    # the host reads the done flag every FLAG_EVERY steps
+    n_max = ctx.hp.n_text_ctx // 2 - 4
+    bound = windows * (math.ceil(n_max / DL.FLAG_EVERY) + 2)
+    assert 0 < windows and readbacks <= bound, (readbacks, bound)
     # what comes out is right by the repo's own means: token ids in the
     # vocabulary, segment ends within the audio, finite encoder output and
     # finite logits of the expected shape.  A segment's t0 follows the
@@ -664,6 +699,109 @@ def run_main_path(W, counters, path: str, kv_itype: str, pcm: np.ndarray):
     return ctx, segs, launches
 
 
+class _Eager:
+    """A window decoder with its eager loop in place of its graphs."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn.eager(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+
+@contextlib.contextmanager
+def eager_windows(ctx):
+    """Inside, every window decoder `ctx` has built runs its eager loop:
+    the reference for its CUDA graphs."""
+    fns = ctx._window_fns
+    ctx._window_fns = {k: _Eager(f) for k, f in fns.items()}
+    try:
+        yield
+    finally:
+        ctx._window_fns = fns
+
+
+def graph_matches_eager(ctx, counters, strategy: str, seeks, temperature: float = 0.0,
+                        n_lanes: int = 1) -> None:
+    """Windows of `ctx` (its mel set) through the window loop's CUDA graphs
+    and through its eager loop on the card: the same WindowResult bit for
+    bit and the same kernel launches (replays counted), window after
+    window, each encoded anew (a graph that read a stale cross-K/V would
+    differ from the eager loop from the second window on)."""
+    v = ctx.vocab
+    prompt = [v.token_sot, v.lang_token(0), v.token_transcribe]
+    import whisper_tpu_torch as W
+
+    params = (W.TranscribeParams.default(W.SamplingStrategy.BEAM_SEARCH)
+              if strategy == "beam" else W.TranscribeParams())
+
+    def window(seek):
+        return ctx.decode_window_device(prompt, n_lanes, temperature, seek,
+                                        ctx.n_len_org, params, False,
+                                        rng_seed=seek + 7, strategy=strategy)
+
+    ctx.encode_window(seeks[0])
+    first = window(seeks[0])               # captures this decoder's graphs
+    for seek in seeks:
+        ctx.encode_window(seek)
+        out = {}
+        for mode in ("graphs", "eager"):
+            for fn in counters:
+                fn.launches = 0
+            with eager_windows(ctx) if mode == "eager" else contextlib.nullcontext():
+                res = window(seek)
+            out[mode] = (res, {fn.__name__: fn.launches for fn in counters})
+        (g, n_g), (e, n_e) = out["graphs"], out["eager"]
+        for name in g._fields:
+            assert np.array_equal(getattr(g, name), getattr(e, name)), (strategy, seek, name)
+        assert n_g == n_e and n_g["qmmt_fused"] > 0, (n_g, n_e)
+        if seek == seeks[0]:
+            # the same window again, with the same rng_seed: the same tokens
+            assert np.array_equal(first.tok_id, g.tok_id)
+        log(f"  [{strategy} t={temperature} lanes={n_lanes} seek={seek}] graphs == eager "
+            f"bit for bit: tokens={int(g.n_tok.max())} launches={json.dumps(n_g)}")
+
+
+def flag_period_sweep(W, DL, ctx, pcm: np.ndarray, periods=(1, 2, 4, 8, 16),
+                      repeats: int = 6) -> None:
+    """A window at t = 0 (encode + the window loop's graphs) for several
+    flag periods (steps per read of the done flag), in turns, the order
+    reversed every other round: per period the median time in the window
+    loop (ctx.timings.t_decode_us: prompt pass, replays, flag and result
+    reads) and of the whole transcribe, the steps run and the flag reads."""
+    params = W.TranscribeParams(temperature_inc=0.0)
+    chosen = DL.FLAG_EVERY
+    W.transcribe(ctx, params, pcm)                # the graphs serve every k
+    loop_ms, walls, counts = ({k: [] for k in periods} for _ in range(3))
+    try:
+        for r in range(repeats):
+            for k in (periods if r % 2 == 0 else periods[::-1]):
+                DL.FLAG_EVERY = k
+                ctx.timings.reset()
+                for fn in window_fns(ctx):
+                    fn.readbacks = fn.steps = 0
+                t0 = time.perf_counter()
+                W.transcribe(ctx, params, pcm)
+                torch.cuda.synchronize()
+                walls[k].append(1e3 * (time.perf_counter() - t0))
+                loop_ms[k].append(ctx.timings.t_decode_us / 1e3)
+                fns = window_fns(ctx)
+                counts[k] = (sum(fn.steps for fn in fns), sum(fn.readbacks for fn in fns),
+                             ctx.timings.n_decode)
+    finally:
+        DL.FLAG_EVERY = chosen
+    for k in periods:
+        steps, reads, tokens = counts[k]
+        log(f"  flag period k={k}: window_loop_ms median={float(np.median(loop_ms[k])):.3f} "
+            f"min={min(loop_ms[k]):.3f} max={max(loop_ms[k]):.3f} "
+            f"wall_ms median={float(np.median(walls[k])):.3f} min={min(walls[k]):.3f} "
+            f"max={max(walls[k]):.3f} steps={steps} readbacks={reads} tokens={tokens} "
+            f"runs={repeats}{' (chosen)' if k == chosen else ''}")
+
+
 def ms_per(t_us: int, n: int) -> float:
     return t_us / 1e3 / max(n, 1)
 
@@ -677,16 +815,23 @@ def device_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def profile_window(W, ctx, pcm: np.ndarray) -> None:
-    """One window at t = 0 (encode + the device window loop, no fallback)
-    under torch.profiler: the device's busy share of the wall time, kernel
-    launches per decode step, and device time by kernel."""
+def profile_window(W, ctx, pcm: np.ndarray, label: str, beam: bool = False) -> None:
+    """One window at t = 0 (encode + the device window loop, no fallback;
+    greedy, or beam search of 5) under torch.profiler: the device's busy
+    share of the wall time, kernel launches per decode step, and device
+    time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    params = W.TranscribeParams(temperature_inc=0.0)
+    if beam:
+        params = W.TranscribeParams.default(W.SamplingStrategy.BEAM_SEARCH)
+        params.temperature_inc = 0.0
+    else:
+        params = W.TranscribeParams(temperature_inc=0.0)
     W.transcribe(ctx, params, pcm)
     torch.cuda.synchronize()
     ctx.timings.reset()
+    for fn in window_fns(ctx):
+        fn.readbacks = fn.steps = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         W.transcribe(ctx, params, pcm)
@@ -697,13 +842,16 @@ def profile_window(W, ctx, pcm: np.ndarray) -> None:
     on_dev = device_events(prof)
     busy_ms = sum(dev_us(e) for e in on_dev) / 1e3
     n_launch = sum(e.count for e in on_dev)
-    log(f"  profile: wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+    fns = window_fns(ctx)
+    log(f"  profile [{label}{' beam 5' if beam else ''}]: wall_ms={wall_ms:.3f} "
+        f"device_busy_ms={busy_ms:.3f} "
         f"idle_share={1 - busy_ms / wall_ms:.4f} device_events={n_launch} "
         f"windows={tm.n_encode} decode_tokens={tm.n_decode} "
+        f"steps={sum(fn.steps for fn in fns)} readbacks={sum(fn.readbacks for fn in fns)} "
         f"encode_ms={ms_per(tm.t_encode_us, tm.n_encode):.3f} "
         f"device_loop_ms_per_token={ms_per(tm.t_decode_us, tm.n_decode):.3f} "
         f"(profiler on)")
-    for e in sorted(on_dev, key=dev_us, reverse=True)[:12]:
+    for e in sorted(on_dev, key=dev_us, reverse=True)[:15]:
         log(f"    {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:110]}")
 
 
@@ -759,7 +907,7 @@ def run_cli(W, TC, counters, model_path: str, wav: str, out_dir: str, extra):
         torch.cuda.synchronize()
         timed["s"] = time.perf_counter() - t0
         timed["tm"] = ctx.timings
-        timed["readbacks"] = sum(fn.readbacks for fn in ctx._window_fns.values())
+        timed["readbacks"] = sum(fn.readbacks for fn in window_fns(ctx))
         return segs
 
     W.transcribe = transcribe
@@ -784,6 +932,7 @@ def run_cli(W, TC, counters, model_path: str, wav: str, out_dir: str, extra):
     log(f"    encode_ms_per_window={ms_per(tm.t_encode_us, tm.n_encode):.3f} "
         f"windows={tm.n_encode} device_loop_ms_per_step={ms_per(tm.t_decode_us, tm.n_decode):.3f} "
         f"device_loop_steps={tm.n_decode} device_loop_readbacks={timed['readbacks']} "
+        f"graphs_captured={tm.n_capture} capture_ms={tm.t_capture_us / 1e3:.3f} "
         f"host_loop_ms_per_step={ms_per(tm.t_batchd_us, tm.n_batchd):.3f} "
         f"host_loop_steps={tm.n_batchd} host_sample_ms={tm.t_sample_us / 1e3:.3f} "
         f"fallbacks={tm.n_fail_p}")
@@ -864,6 +1013,8 @@ def main() -> int:
     from whisper_tpu_torch.audio.io import write_wav
     from whisper_tpu_torch.cli import bench_cli as TB
     from whisper_tpu_torch.cli import transcribe as TC
+    from whisper_tpu_torch.decoding import device_loop as DL
+    from whisper_tpu_torch.decoding import graphs as G
     from whisper_tpu_torch.formats import quants as Q
     from whisper_tpu_torch.models.whisper import model as M
     from whisper_tpu_torch.models.whisper.hparams import LARGE_V3_TURBO
@@ -901,8 +1052,7 @@ def main() -> int:
 
     log("== 4. paths: q5_0 large-v3-turbo, load() + transcribe(), flash encode, "
         "whisper-cli, whisper-bench")
-    counters = [QM.qmmt_fused, QM.qmmt, DA.self_attend_q8, EA.self_attention_qkv,
-                QM.qmm, FA.flash_self_attention]
+    counters = G.COUNTED
     pcm = seeded_audio(40.0, seed=0)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "large-v3-turbo-q5_0.bin")
@@ -910,10 +1060,15 @@ def main() -> int:
         write_synth_model(path, LARGE_V3_TURBO, seed=0, qtype="q5_0", decisive=True)
         log(f"  synth_s={time.perf_counter() - t0:.1f} bytes={os.path.getsize(path)}")
         ctx, segs_q8, launches = run_main_path(W, counters, path, "q8", pcm)
-        profile_window(W, ctx, pcm[:16000 * 30])
+        graph_matches_eager(ctx, counters, "greedy", seeks=(0,))
+        profile_window(W, ctx, pcm[:16000 * 30], "graphs")
+        with eager_windows(ctx):
+            profile_window(W, ctx, pcm[:16000 * 30], "eager")
+        flag_period_sweep(W, DL, ctx, pcm[:16000 * 30])
         n_flash = flash_encode(M, FA, EA, ctx, pcm)
         del ctx
         ctx, segs_f16, launches_f16 = run_main_path(W, counters, path, "f16", pcm)
+        profile_window(W, ctx, pcm[:16000 * 30], "graphs", beam=True)
         del ctx
         wav = os.path.join(tmp, "audio-40s.wav")
         write_wav(wav, pcm)

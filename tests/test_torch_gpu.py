@@ -1,6 +1,6 @@
 """Card tests of the port: each Hopper kernel against its plain PyTorch
-version on the same CUDA inputs, and the slice on the card against the
-slice on the CPU.  They need a CUDA card and skip without one (run them on
+version on the same CUDA inputs, the window loop's CUDA graphs against its
+eager loop, and the slice on the card against the slice on the CPU.  They need a CUDA card and skip without one (run them on
 the card with `python -m pytest tests/test_torch_gpu.py -m gpu`).
 
 Tolerances: qmmt 1e-4 of max |y| (f32 sums in another order over K up to
@@ -184,6 +184,53 @@ def test_flash_self_attention_kernel(cuda, H, T, true_len, D, dtype):
     assert (out[:, :true_len] - ref[:, :true_len]).abs().max() <= 2e-2
     # no atomics: two calls and a CUDA-graph replay give the same bits
     assert same_under_graph(lambda: FA.flash_self_attention(q, k, v, true_len=true_len))
+
+
+_DECISIVE = {}
+
+
+def _decisive_ctx(tmp_path_factory, kv_itype):
+    """A card context on a small decisive model with 35 s of seeded audio's
+    mel set (two windows)."""
+    import whisper_tpu_torch as W
+    from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
+    from whisper_tpu_torch.utils.synth import write_synth_model
+
+    if "path" not in _DECISIVE:
+        hp = WhisperHParams(n_vocab=51865, n_audio_ctx=1500, n_audio_state=128,
+                            n_audio_head=2, n_audio_layer=2, n_text_ctx=448,
+                            n_text_state=128, n_text_head=2, n_text_layer=3, n_mels=80)
+        path = str(tmp_path_factory.mktemp("window") / "decisive-q5_0.bin")
+        write_synth_model(path, hp, seed=1, qtype="q5_0", decisive=True)
+        _DECISIVE["path"] = path
+    ctx = W.load(_DECISIVE["path"], kv_itype=kv_itype)
+    ctx.pcm_to_mel((0.1 * np.random.default_rng(5).standard_normal(16000 * 35))
+                   .astype(np.float32))
+    return ctx
+
+
+@pytest.mark.parametrize("kv_itype", ["q8", "f16"])
+@pytest.mark.parametrize("strategy", ["greedy", "beam"])
+def test_window_graphs_match_eager(cuda, tmp_path_factory, strategy, kv_itype):
+    # two consecutive windows, each with its own cross-K/V: the graphs give
+    # the eager loop's WindowResult bit for bit and its kernel launches
+    from chip_smoke import graph_matches_eager
+    from whisper_tpu_torch.decoding.graphs import COUNTED
+
+    ctx = _decisive_ctx(tmp_path_factory, kv_itype)
+    graph_matches_eager(ctx, COUNTED, strategy, seeks=(0, 3000),
+                        n_lanes=5 if strategy == "beam" else 1)
+
+
+def test_window_graphs_sample_at_t_above_0(cuda, tmp_path_factory):
+    # five sampling lanes at t = 0.7: the same rng_seed gives the same tokens
+    # twice, and the graphs draw what the eager loop draws
+    from chip_smoke import graph_matches_eager
+    from whisper_tpu_torch.decoding.graphs import COUNTED
+
+    ctx = _decisive_ctx(tmp_path_factory, "q8")
+    graph_matches_eager(ctx, COUNTED, "greedy", seeks=(0, 3000), temperature=0.7,
+                        n_lanes=5)
 
 
 def test_transcribe_card_matches_cpu(cuda, tmp_path):

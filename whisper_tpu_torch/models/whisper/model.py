@@ -344,8 +344,10 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     """One batched decoder forward over all lanes (whisper_build_graph_decoder,
     src/whisper.cpp:2464-2842).
 
-    tokens, positions: (n_beam, n_tok) int64; kv_head: cache write offset
-    (host int).  Only the first `attn_ctx` cache cells are read; the caller
+    tokens, positions: (n_beam, n_tok) int64; kv_head: cache write offset,
+    a host int or a 0-d int64 tensor on the device (the window loop's
+    captured step, as the JAX package's traced kv_head); both give the same
+    result.  Only the first `attn_ctx` cache cells are read; the caller
     promises kv_head + n_tok <= attn_ctx.  attn_mask: optional extra
     additive (B, 1, 1, C) mask.  Returns (logits (n_beam, n_tok, n_vocab)
     f32, the cache updated in place)."""
@@ -377,7 +379,9 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
         kmask = mask[:, 0].expand(n_beam, n_tok, A).contiguous()
     # a write past the last cell lands on the last n_tok cells, as JAX's
     # dynamic_update_slice clamps its start index
-    start = min(kv_head, n_ctx - n_tok)
+    cells = torch.arange(n_tok, device=device)
+    cells = cells + (torch.clamp(kv_head, max=n_ctx - n_tok) if torch.is_tensor(kv_head)
+                     else min(kv_head, n_ctx - n_tok))
 
     def to_col(kv2d):  # (B, T, 2, S) -> (B, H, 2, T, d)
         return kv2d.reshape(n_beam, n_tok, 2, n_head, d_head).permute(0, 3, 2, 1, 4)
@@ -397,8 +401,8 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
         kv2 = qkv[..., n_state:].reshape(n_beam, n_tok, 2, n_state)
         if is_q8:
             codes, sc = _quantize_rows(kv2)                 # (B,T,2,S), (B,T,2)
-            cache.kv[l, :, :, :, start:start + n_tok] = to_col(codes)
-            cache.scale[l, :, :, start:start + n_tok] = sc.transpose(1, 2)
+            cache.kv[l].index_copy_(3, cells, to_col(codes))
+            cache.scale[l].index_copy_(2, cells, sc.transpose(1, 2))
             if use_dattn:
                 out = decode_attn.self_attend_q8(cache.kv, cache.scale, qh, kmask,
                                                  l=l, attn_ctx=A, dtype=dtype)
@@ -412,7 +416,7 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
                 probs = torch.softmax(scores.float(), dim=-1)
                 out = matmul_f32(probs * s_l[:, None, None, 1, :A], vh, dtype)
         else:
-            cache.kv[l, :, :, :, start:start + n_tok] = to_col(kv2).to(cache.kv.dtype)
+            cache.kv[l].index_copy_(3, cells, to_col(kv2).to(cache.kv.dtype))
             kv_l = cache.kv[l]
             out = attention(qh, kv_l[:, :, 0, :A], kv_l[:, :, 1, :A], mask, dtype)
         x = _mm_fused(_merge_heads(out), blk["o_w"], dtype, bias=blk["o_b"], res=x)

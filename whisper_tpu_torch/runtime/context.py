@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import copy
 import time
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,15 @@ TOKEN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 448)
 # per call; biases, norms and embeddings stay f32)
 _MATMUL_KEYS = {"qkv_w", "o_w", "mlp0_w", "mlp1_w", "xq_w", "xk_w", "xv_w",
                 "xo_w", "conv1_w", "conv2_w"}
+
+
+@dataclass
+class ContextTimings(Timings):
+    """The phase timers, and the window loop's CUDA-graph captures (kept
+    out of t_decode_us)."""
+
+    t_capture_us: int = 0
+    n_capture: int = 0
 
 
 def _bucket(n: int) -> int:
@@ -103,7 +113,7 @@ class WhisperContext:
             self.params = _cast_matmul_weights(self.params, self.compute_dtype)
 
         self.mel_fn = LogMel(model.filters.data)
-        self.timings = Timings()
+        self.timings = ContextTimings()
         self.filter_tables: Optional[LogitFilterTables] = None  # set per window
         self.mel: Optional[np.ndarray] = None       # (n_mel, n_len)
         self.n_len_org: int = 0
@@ -220,13 +230,17 @@ class WhisperContext:
         prompt_padded = np.zeros(bt, np.int64)
         prompt_padded[: len(prompt)] = prompt
         dev = self.device
+        capture_us, n_graphs = fn.capture_us, fn.graphs
         t0 = time.perf_counter()
         res = fn(self.params, torch.from_numpy(prompt_padded).to(dev),
                  len(prompt), self.xk, self.xv,
                  torch.from_numpy(base_mask).to(dev),
                  torch.from_numpy(initial_mask).to(dev), float(temperature),
                  int(seek), int(seek_end), int(params.max_tokens), rng_seed)
-        self.timings.t_decode_us += int((time.perf_counter() - t0) * 1e6)
+        capture_us = fn.capture_us - capture_us
+        self.timings.t_decode_us += int((time.perf_counter() - t0) * 1e6) - capture_us
+        self.timings.t_capture_us += capture_us
+        self.timings.n_capture += fn.graphs - n_graphs
         self.timings.n_decode += int(res.n_tok.max()) if res.n_tok.size else 0
         self.timings.n_prompt += len(prompt)
         return res
@@ -235,7 +249,7 @@ class WhisperContext:
         """A shallow clone sharing weights but with its own per-stream state
         (mel, encoder outputs, rolling prompt, timings)."""
         sub = copy.copy(self)
-        sub.timings = Timings()
+        sub.timings = ContextTimings()
         sub.mel = None
         sub.n_len_org = 0
         sub.xk = sub.xv = None
