@@ -28,7 +28,13 @@ Phases (any failure exits non-zero; nothing is caught):
      f16, then q8), and whisper-bench -w 1 and -w 2;
   5. the slice on the card against the slice on the CPU, on a small
      decisive model: identical segments, greedy and beam search, on the
-     fused-QKV and the flash encoder routes and on -nfa's plain graphs.
+     fused-QKV and the flash encoder routes and on -nfa's plain graphs;
+  6. batched serving on the turbo file: the port's whisper-server answers
+     4 concurrent greedy requests and 2 concurrent beam-search ones (their
+     window decodes batched natively by the server-wide WindowBatcher),
+     then each alone, every concurrent response equal to its solo one;
+     then the whisper-cli with -p 4 --kv-itype q8 (the decode attention
+     kernel at 4 x 5 rows).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -57,6 +63,11 @@ L2_ROTATE_BYTES = 160 * 2**20    # rotate input copies past the 50 MB L2
 
 def log(*a):
     print(*a, flush=True)
+
+
+def heading(title: str, t_start: float) -> None:
+    """A phase's heading, with the seconds since the script started."""
+    log(f"== {title} [at_s={time.perf_counter() - t_start:.1f}]")
 
 
 def nvidia_smi_line() -> str:
@@ -120,11 +131,22 @@ def same_under_graph(fn) -> bool:
     return torch.equal(a, b) and torch.equal(a, c)
 
 
+BATCHED_T = (4, 8, 10, 20)    # K1 rows of natively batched steps (phase 6)
+# prompt buckets of W = 4 natively batched windows: the prompt pass runs K1
+# at T = 4 x bucket rows, and K3 at B = 4, G = bucket with each row's
+# left-pad mask
+NATIVE_PROMPT_BUCKETS = (4, 32, 256)
+
+
 def check_qmmt(dev, Q, QM):
     """K1 (qmmt_fused) per decode-path use at T = 1 (a greedy step) and T = 5
-    (a beam step of five lanes), prompt passes at T = 4 and 32, and K2
-    (qmmt), at turbo widths, on planes installed as the main path installs
-    them (rows pitched to 64 columns)."""
+    (a beam step of five lanes), at the batched steps' T = W x G of
+    BATCHED_T (W = 4 greedy windows, 8 rows, W = 2 beam windows of 5, W = 4
+    beam windows of 5), prompt passes at T = 4 and 32, the qkv and logits
+    uses of natively batched prompt passes at T = 4 x NATIVE_PROMPT_BUCKETS
+    (W = 4 windows), and K2 (qmmt), at
+    turbo widths, on planes installed as the main path installs them (rows
+    pitched to 64 columns)."""
     S = 1280
     uses = [  # name, K, R, ln, bias, act, res, launches per step
         ("qkv", S, 3 * S, True, True, None, False, 4),
@@ -135,15 +157,20 @@ def check_qmmt(dev, Q, QM):
         ("mlp1", 4 * S, S, False, True, None, True, 4),
         ("logits", S, 51866, True, False, None, False, 1),
     ]
-    cases = ([(n, 1, *u) for n, *u in uses] + [(n, 5, *u) for n, *u in uses]
+    cases = ([(n, T, *u) for T in (1, 5, *BATCHED_T) for n, *u in uses]
              + [("qkv_prompt4", 4, S, 3 * S, True, True, None, False, 0),
                 ("logits_prompt4", 4, S, 51866, True, False, None, False, 0),
                 ("qkv_prompt32", 32, S, 3 * S, True, True, None, False, 0),
-                ("logits_prompt32", 32, S, 51866, True, False, None, False, 0),
+                ("logits_prompt32", 32, S, 51866, True, False, None, False, 0)]
+             + [(f"{u}_native_prompt4x{b}", 4 * b, S, R, True, u == "qkv", None, False, 0)
+                for b in NATIVE_PROMPT_BUCKETS for u, R in (("qkv", 3 * S), ("logits", 51866))]
+             + [
                 ("qmmt", 1, S, 3 * S, False, False, None, False, 0)])
     g = torch.Generator().manual_seed(0)
+    step_key = {1: "qmmt_fused", 5: "qmmt_fused_beam",
+                **{T: f"qmmt_fused_T{T}" for T in BATCHED_T}}
     agg = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0, bytes=0, flops=0)
-           for k in ("qmmt_fused", "qmmt", "qmmt_fused_beam")}
+           for k in ("qmmt", *step_key.values())}
     for name, T, K, R, ln, bias, act, res, per_step in cases:
         w = torch.randn((R, K), generator=g).numpy()
         p = Q.unpack_to_planes(Q.quantize(w, Q.GGML_TYPE_Q5_0), Q.GGML_TYPE_Q5_0, (R, K))
@@ -166,7 +193,7 @@ def check_qmmt(dev, Q, QM):
         log(f"  check {kernel.__name__}[{name}] T={T} K={K} R={R} pitch={codes.stride(0)} "
             f"grid={-(-R // QM.TILE)}x{-(-K // ks)}: max_abs_err={err:.3e} tol={tol:.3e}")
         assert math.isfinite(err) and err <= tol, name
-        if name in ("logits", "mlp1", "qkv_prompt4"):
+        if name in ("logits", "mlp1", "qkv_prompt4") and T in (1, 5, 4, 20):
             assert same_under_graph(call), f"{name}: not bit-identical across calls"
             log(f"  check {kernel.__name__}[{name}] T={T}: bit-identical over two calls "
                 f"and a CUDA-graph replay")
@@ -208,7 +235,7 @@ def check_qmmt(dev, Q, QM):
         ms = device_ms(run_kernel, nbytes)
         plain_ms = device_ms(run_plain, nbytes)
         library_ms = device_ms(run_library, 2 * K * R)
-        if T in (1, 5, 32) and name != "qmmt":
+        if T in (1, 5, 32, 8, 20) and name != "qmmt":
             # the product on the other route (tensor cores against CUDA-core
             # FMAs); the wrapper takes the tensor cores from QM.MMA_MIN_T rows
             chosen = QM.MMA_MIN_T
@@ -219,7 +246,7 @@ def check_qmmt(dev, Q, QM):
             log(f"  time  {kernel.__name__}[{name}] T={T} by product route: "
                 f"mma_ms={ms if mma else other_ms:.5f} fma_ms={other_ms if mma else ms:.5f} "
                 f"(the wrapper takes {'mma' if mma else 'fma'})")
-        if name in ("qkv", "mlp0", "mlp1", "logits"):
+        if name in ("qkv", "mlp0", "mlp1", "logits") and T in (1, 5):
             # rows of K per block, measured here; the wrapper's choice is
             # QM.slice_rows
             chosen, times = QM.slice_rows, {}
@@ -235,7 +262,8 @@ def check_qmmt(dev, Q, QM):
         log(f"  time  {kernel.__name__}[{name}] T={T}: kernel_ms={ms:.5f} "
             f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.5f} "
             f"({by}) launches_per_{'beam_' if T == 5 else ''}step={per_step}")
-        key = "qmmt" if name == "qmmt" else "qmmt_fused_beam" if T == 5 else "qmmt_fused"
+        key = ("qmmt" if name == "qmmt" else step_key.get(T, "qmmt_fused")
+               if per_step else "qmmt_fused")
         a = agg[key]
         a["err"] = max(a["err"], err)
         weight = per_step if kernel is QM.qmmt_fused else 1
@@ -243,41 +271,71 @@ def check_qmmt(dev, Q, QM):
             a[k] += weight * v
         a["bytes"] += weight * nbytes
         a["flops"] += weight * flops
-    for key, unit in (("qmmt_fused", "decode step (T=1)"), ("qmmt_fused_beam", "beam step (T=5)")):
+    for T, key in step_key.items():
         a = agg[key]
         b_ms, by = bound_ms(a["bytes"], a["flops"])
-        log(f"  qmmt_fused per {unit}, 25 launches: kernel_ms={a['ms']:.5f} "
-            f"library_ms={a['library_ms']:.5f} bound_ms={b_ms:.5f} ({by}) "
+        unit = ("decode step" if T == 1 else "beam step" if T == 5 else "batched step")
+        log(f"  qmmt_fused per {unit} (T={T}), 25 launches: kernel_ms={a['ms']:.5f} "
+            f"plain_ms={a['plain_ms']:.5f} library_ms={a['library_ms']:.5f} "
+            f"bound_ms={b_ms:.5f} ({by}) ratio_to_T1={a['ms'] / agg['qmmt_fused']['ms']:.3f} "
+            f"bound_ratio_to_T1={b_ms / bound_ms(agg['qmmt_fused']['bytes'], agg['qmmt_fused']['flops'])[0]:.3f} "
             f"kernel_not_slower_than_library={a['ms'] <= a['library_ms']}")
-    agg["qmmt_fused"]["err"] = max(agg["qmmt_fused"]["err"], agg.pop("qmmt_fused_beam")["err"])
+    for key in step_key.values():
+        if key != "qmmt_fused":
+            agg["qmmt_fused"]["err"] = max(agg["qmmt_fused"]["err"], agg.pop(key)["err"])
     return agg
 
 
 def check_self_attend_q8(dev, DA):
     """K3 at turbo widths: G = 1 (a decode step) and G = 4 (a prompt
-    bucket) for every attention bucket A with one row, and B = 5 rows (a
-    beam step) at A = 448; q is the f32 head view of the fused projection,
+    bucket) for every attention bucket A with one row, B = 5 rows (a beam
+    step) at A = 448, the natively batched steps' B = 4 and 10 rows at
+    A = 128 and 448 with each row's left-pad cells masked (0 to 7 of them),
+    and the natively batched prompt passes of W = 4 windows, B = 4 and G =
+    NATIVE_PROMPT_BUCKETS, with the mask the prompt pass builds (causal,
+    each row's left-pad cells hidden, a pad query seeing itself) over the
+    native cache's cells; q is the f32 head view of the fused projection,
     as decode_step passes it.  Then the cluster size at A = 448, G = 1."""
-    L, H, C, D = 4, 20, 448, 64
+    from whisper_tpu_torch.decoding import device_loop as DL
+    from whisper_tpu_torch.models.whisper import model as M
+
+    L, H, D = 4, 20, 64
     S = H * D
     g = torch.Generator().manual_seed(1)
     agg = None
     err_max = 0.0
-    cases = [(1, G, A) for G in (1, 4) for A in (128, 256, 384, 448)] + [(5, 1, 448)]
-    for B, G, A in cases:
+    # B, G, A, C, the rows' masks: "causal" (one window), "pad" (a batched
+    # step), "prompt" (a batched prompt pass)
+    cases = ([(1, G, A, 448, "causal") for G in (1, 4) for A in (128, 256, 384, 448)]
+             + [(5, 1, 448, 448, "causal")]
+             + [(B, 1, A, 448, "pad") for B in (4, 10) for A in (128, 448)]
+             + [(4, G, next(a for a in M.attn_ctx_buckets(448) if a >= G),
+                 max(448, G + 220), "prompt") for G in NATIVE_PROMPT_BUCKETS])
+    for B, G, A, C, rows in cases:
         kv = torch.randint(-127, 128, (L, B, H, 2, C, D), generator=g, dtype=torch.int8).to(dev)
         scale = (0.01 + 0.02 * torch.rand((L, B, 2, C), generator=g)).to(dev)
         qkv = torch.randn((B, G, 3 * S), generator=g).to(dev)
         q = qkv[..., :S].reshape(B, G, H, D).transpose(1, 2)     # (B, H, G, D) view
-        vis = torch.arange(A)[None, :] < (A - G + torch.arange(G) + 1)[:, None]
-        mask = torch.where(vis, 0.0, float("-inf")).expand(B, G, A).contiguous().to(dev)
+        if rows == "prompt":
+            lens = torch.randint(G // 2 + 1, G + 1, (B,), generator=g).tolist()
+            _, mask_prompt, _ = DL.prompt_pad_masks(G, C, lens, dev)
+            mask = M.decode_mask(0, G, A, dev, mask_prompt)[:, 0].expand(B, G, A).contiguous()
+        else:
+            vis = torch.arange(A)[None, :] < (A - G + torch.arange(G) + 1)[:, None]
+            vis = vis.expand(B, G, A)
+            if rows == "pad":        # each row's left-pad cells, masked
+                shift = torch.randint(0, 8, (B,), generator=g)
+                vis = vis & (torch.arange(A)[None, None, :] >= shift[:, None, None])
+            mask = torch.where(vis, 0.0, float("-inf")).contiguous().to(dev)
+        batched = rows != "causal"
         call = lambda: DA.self_attend_q8(kv, scale, q, mask, l=L - 1, attn_ctx=A)
         out = call()
         ref = DA.self_attend_q8_plain(kv, scale, q, mask, l=L - 1, attn_ctx=A)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = 2e-2 * ref.abs().max().item()
-        tag = f"B={B},G={G},A={A}"
+        tag = f"B={B},G={G},A={A},C={C}" + {"causal": "", "pad": ",pad rows masked",
+                                               "prompt": ",native prompt pass"}[rows]
         log(f"  check self_attend_q8[{tag}]: max_abs_err={err:.3e} tol={tol:.3e} "
             f"max_abs={ref.abs().max().item():.3e}")
         assert math.isfinite(err) and err <= tol
@@ -324,8 +382,11 @@ def check_self_attend_q8(dev, DA):
         per_step = 4 if G == 1 else 0
         log(f"  time  self_attend_q8[{tag}]: kernel_ms={ms:.5f} "
             f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-            f"bound_ms={b_ms:.5f} ({by}) launches_per_{'beam_' if B == 5 else ''}step={per_step}")
-        if A == 448 and G == 1:
+            f"bound_ms={b_ms:.5f} ({by}) launches_per_{'beam_' if B == 5 else ''}step={per_step}"
+            + (f" per_{'step' if G == 1 else 'prompt_pass'}_ms={4 * ms:.5f} "
+               f"per_{'step' if G == 1 else 'prompt_pass'}_bound_ms={4 * b_ms:.5f}"
+               if batched else ""))
+        if A == 448 and G == 1 and not batched:
             # blocks per (row, head) cluster, measured here; the wrapper's is
             # DA.CLUSTER
             chosen = DA.CLUSTER
@@ -765,6 +826,59 @@ def graph_matches_eager(ctx, counters, strategy: str, seeks, temperature: float 
             f"bit for bit: tokens={int(g.n_tok.max())} launches={json.dumps(n_g)}")
 
 
+def native_graph_matches_eager(ctx, counters, strategy: str, n_windows: int,
+                               n_lanes: int, temperature: float = 0.0) -> None:
+    """`n_windows` windows of `ctx` (its mel set; seeks 0, 3000, 0, ...,
+    prompts of different lengths, so the batch left-pads them) natively
+    batched, through the window decoder's CUDA graphs and through its eager
+    loop: the same WindowResult bit for bit and the same kernel launches
+    (replays counted), twice (the second graph call replays on windows
+    loaded anew)."""
+    from whisper_tpu_torch.decoding import device_loop as DL
+    from whisper_tpu_torch.runtime.batching import _stack
+
+    import whisper_tpu_torch as W
+
+    v = ctx.vocab
+    params = (W.TranscribeParams.default(W.SamplingStrategy.BEAM_SEARCH)
+              if strategy == "beam" else W.TranscribeParams())
+    seeks = [3000 * (w % 2) for w in range(n_windows)]
+    bt = 8
+    rows, lens, xks, xvs = [], [], [], []
+    for w, seek in enumerate(seeks):
+        prompt = (([v.token_prev, *range(300, 300 + w)] if w else [])
+                  + [v.token_sot, v.lang_token(0), v.token_transcribe])
+        ctx.encode_window(seek)
+        row = np.zeros(bt, np.int64)
+        row[:len(prompt)] = prompt
+        rows.append(row)
+        lens.append(len(prompt))
+        xks.append(ctx.xk)
+        xvs.append(ctx.xv)
+    base, initial = (torch.from_numpy(a).to(ctx.device)
+                     for a in DL.build_masks(ctx.filter_tables, params))
+    args = (ctx.params, torch.from_numpy(np.stack(rows)).to(ctx.device), lens,
+            _stack(xks), _stack(xvs), base, initial, [temperature] * n_windows, seeks,
+            [s + 3500 for s in seeks], 0, [7 + w for w in range(n_windows)])
+    fn = ctx.window_decoder((n_lanes, bt, False, False, strategy), n_windows=n_windows)
+    fn(*args)                             # captures this decoder's graphs
+    out = {}
+    for mode in ("graphs", "eager", "graphs again"):
+        for f in counters:
+            f.launches = 0
+        res = fn.eager(*args) if mode == "eager" else fn(*args)
+        out[mode] = (res, {f.__name__: f.launches for f in counters})
+    (g, n_g), (e, n_e), (g2, n_g2) = out["graphs"], out["eager"], out["graphs again"]
+    for name in g._fields:
+        assert np.array_equal(getattr(g, name), getattr(e, name)), (strategy, name)
+        assert np.array_equal(getattr(g, name), getattr(g2, name)), (strategy, name)
+    assert n_g == n_e == n_g2 and n_g["qmmt_fused"] > 0, (n_g, n_e, n_g2)
+    assert g.tok_id.shape[:2] == (n_windows, n_lanes) and g.n_tok.min() > 1
+    log(f"  [{strategy} W={n_windows} G={n_lanes} t={temperature} {ctx.kv_itype}] native "
+        f"graphs == eager bit for bit: tokens={g.n_tok.max(axis=1).tolist()} "
+        f"launches={json.dumps(n_g)}")
+
+
 def flag_period_sweep(W, DL, ctx, pcm: np.ndarray, periods=(1, 2, 4, 8, 16),
                       repeats: int = 6) -> None:
     """A window at t = 0 (encode + the window loop's graphs) for several
@@ -999,6 +1113,306 @@ def card_matches_cpu(tmp: str) -> None:
             f"the card: flash_self_attention {n_k6}, self_attend_q8 {n_k3})")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: batched serving
+# ---------------------------------------------------------------------------
+
+def _multipart(fields) -> tuple:
+    boundary = "----whisper-tpu-torch-smoke"
+    out = []
+    for name, (filename, content) in fields.items():
+        dispo = f'Content-Disposition: form-data; name="{name}"'
+        if filename:
+            dispo += f'; filename="{filename}"'
+        out += [f"--{boundary}\r\n{dispo}\r\n\r\n".encode(),
+                content if isinstance(content, bytes) else content.encode(), b"\r\n"]
+    out.append(f"--{boundary}--\r\n".encode())
+    return b"".join(out), f"multipart/form-data; boundary={boundary}"
+
+
+def _post(url: str, fields) -> tuple:
+    """(HTTP status, body, seconds) of one multipart POST."""
+    import urllib.request
+
+    body, ctype = _multipart(fields)
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": ctype})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out = r.status, r.read().decode("utf-8")
+    return (*out, time.perf_counter() - t0)
+
+
+def _volley(url: str, requests) -> tuple:
+    """`requests` ([(name, fields)]) posted at once, one thread each:
+    (wall seconds of the volley, {name: (body, seconds)})."""
+    import threading
+
+    out, errors = {}, []
+
+    def hit(name, fields):
+        try:
+            status, body, sec = _post(url + "/inference", fields)
+            assert status == 200, (name, status)
+            out[name] = (body, sec)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=hit, args=r) for r in requests]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return wall, out
+
+
+def batched_step_ms(ctx, pcms, repeats: int = 3) -> None:
+    """The t = 0 greedy window decode of the first 30 s of each of `pcms`
+    on the window loop's graphs: solo, one window after another, and
+    natively batched (W = len(pcms)), `repeats` times in turns.  Per mode
+    the median of the host clock around the calls (ending in their result
+    reads) over the steps they ran: ms per step, prompt passes and reads
+    included."""
+    from whisper_tpu_torch.decoding import device_loop as DL
+    from whisper_tpu_torch.runtime.batching import _stack
+
+    import whisper_tpu_torch as W
+
+    v = ctx.vocab
+    subs = []
+    for pcm in pcms:
+        sub = ctx.clone_state()
+        sub.pcm_to_mel(pcm)
+        sub.encode_window(0)
+        subs.append(sub)
+    base, initial = (torch.from_numpy(a).to(ctx.device) for a in DL.build_masks(
+        subs[0].filter_tables, W.TranscribeParams()))
+    row = torch.tensor([v.token_sot, v.lang_token(0), v.token_transcribe, 0],
+                       device=ctx.device)
+    key = (1, 4, False, False, "greedy")
+    n = len(subs)
+    solo_fn, native_fn = ctx.window_decoder(key), ctx.window_decoder(key, n_windows=n)
+
+    def solo():
+        return [solo_fn(ctx.params, row, 3, s.xk, s.xv, base, initial, 0.0, 0,
+                        s.n_len_org, 0, 0) for s in subs]
+
+    def batched():
+        return native_fn(ctx.params, row.expand(n, 4), [3] * n, _stack([s.xk for s in subs]),
+                         _stack([s.xv for s in subs]), base, initial, [0.0] * n, [0] * n,
+                         [s.n_len_org for s in subs], 0, [0] * n)
+
+    runs = {"solo": (solo, solo_fn, []), "batched": (batched, native_fn, [])}
+    for r in range(repeats + 1):
+        for name in (("solo", "batched") if r % 2 else ("batched", "solo")):
+            call, fn, out = runs[name]
+            steps = fn.steps
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            if r:                            # the first round warms up
+                out.append((1e3 * (time.perf_counter() - t0), fn.steps - steps))
+            runs[name] = (call, fn, out)
+    same = all(np.array_equal(b, s.tok_id[0]) for b, s in zip(batched().tok_id[:, 0], solo()))
+    ms = {k: float(np.median([t / st for t, st in v[2]])) for k, v in runs.items()}
+    steps = {k: v[2][-1][1] for k, v in runs.items()}
+    log(f"  window loop, t=0 greedy, {n} windows: ms_per_step solo={ms['solo']:.4f} "
+        f"(steps per run {steps['solo']}) batched_W{n}={ms['batched']:.4f} "
+        f"(steps per run {steps['batched']}) step_ratio={ms['batched'] / ms['solo']:.3f} "
+        f"window_steps_per_ms solo={1 / ms['solo']:.3f} batched={n / ms['batched']:.3f} "
+        f"tokens_equal={same} runs={repeats}")
+
+
+SOLO_GREEDY = 2       # greedy requests replayed alone in phase 6
+
+
+def serve_batched(TS, counters, path: str, tmp: str) -> dict:
+    """The port's whisper-server on the card (turbo file, the server's
+    defaults: f16 cache, greedy or beam search 5 per request, fallbacks on)
+    at 127.0.0.1, port 0: one warm-up request, then 4 concurrent greedy
+    requests (distinct seeded 40 s clips), 2 concurrent beam_size=5
+    requests, and SOLO_GREEDY of the greedy ones and both beam ones again
+    alone, one after another (the phase's time cap leaves no room for all
+    4 greedy replays).  Each replayed response must equal its concurrent
+    one (srt: text and timestamps); the batcher must have coalesced.
+    Returns the launches of this path (counts set to 0 just before the
+    concurrent requests, read after the last solo one)."""
+    import threading
+
+    from whisper_tpu_torch.audio.io import write_wav
+
+    def clip(seconds, seed):
+        f = os.path.join(tmp, f"clip-{seed}.wav")
+        write_wav(f, seeded_audio(seconds, seed))
+        with open(f, "rb") as fh:
+            return fh.read()
+
+    greedy = [(f"greedy{i}", {"file": ("clip.wav", clip(40.0, 1 + i)),
+                              "response_format": ("", "srt")}) for i in range(4)]
+    beam = [(f"beam{i}", {"file": ("clip.wav", clip(40.0, 5 + i)),
+                          "response_format": ("", "srt"), "beam_size": ("", "5")})
+            for i in range(2)]
+    from whisper_tpu_torch.decoding import timestamps as TT
+
+    # each request's own timers (its context clone's), in arrival order, and
+    # the time in token-level timestamps (host code the timers do not cover;
+    # the server turns them on unless a request asks for no timestamps)
+    seen, tt_ms = [], [0.0]
+    joining, token_ts = TS.transcribe_joining, TT.compute_token_level_timestamps
+
+    def timed_joining(*args):
+        t0 = time.perf_counter()
+        segs, sub = joining(*args)
+        seen.append((time.perf_counter() - t0, sub.timings))
+        return segs, sub
+
+    def timed_token_ts(*args):
+        t0 = time.perf_counter()
+        out = token_ts(*args)
+        tt_ms[0] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def mark():
+        seen.clear()
+        tt_ms[0] = 0.0
+
+    def breakdown(label, entries, token_ts_ms):
+        tm = [t for _, t in entries]
+        tot = lambda f: sum(getattr(t, f) for t in tm) / 1e3
+        wall = 1e3 * sum(w for w, _ in entries)
+        parts = {"mel": tot("t_mel_us"), "encode": tot("t_encode_us"),
+                 "window_loop": tot("t_decode_us"), "captures": tot("t_capture_us"),
+                 "host_loop": tot("t_batchd_us"), "host_filters": tot("t_sample_us"),
+                 "token_timestamps": token_ts_ms}
+        log(f"  {label}: transcribe_ms={wall:.1f} " + " ".join(
+            f"{k}_ms={v:.1f}" for k, v in parts.items())
+            + f" rest_ms={wall - sum(parts.values()):.1f} encodes={sum(t.n_encode for t in tm)} "
+            f"window_tokens={sum(t.n_decode for t in tm)} host_loop_steps="
+            f"{sum(t.n_batchd for t in tm)} fallbacks={sum(t.n_fail_p for t in tm)} "
+            f"(summed over {len(tm)} requests; window_loop includes waiting in the batcher)")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    TS.transcribe_joining, TT.compute_token_level_timestamps = timed_joining, timed_token_ts
+    httpd = TS.serve(path, host="127.0.0.1", port=0, defaults={"language": "en"})
+    state = httpd.whisper_state
+    ctx, batcher = state.get()
+    t_load = time.perf_counter() - t0
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        status, _, _ = _post(url + "/inference", {"file": ("clip.wav", clip(3.0, 9))})
+        assert status == 200
+        t_warm = time.perf_counter() - t0
+        base = (batcher.n_rounds, batcher.n_coalesced_rounds, batcher.t_round_us)
+        g0 = sum(f.graphs for f in window_fns(ctx))
+        c0 = sum(f.capture_us for f in window_fns(ctx))
+        for fn in counters:
+            fn.launches = 0
+        mark()
+        greedy_wall, conc = _volley(url, greedy)
+        conc_timers = (list(seen), tt_ms[0])
+        beam_wall, conc_beam = _volley(url, beam)
+        conc.update(conc_beam)
+        rounds = batcher.n_rounds - base[0]
+        coalesced = batcher.n_coalesced_rounds - base[1]
+        round_ms = (batcher.t_round_us - base[2]) / 1e3
+        largest = batcher.max_round_size
+        solo = {}
+        mark()
+        for i, (name, fields) in enumerate(greedy[:SOLO_GREEDY] + beam):
+            if i == SOLO_GREEDY:
+                solo_timers = (list(seen), tt_ms[0])
+            status, body, sec = _post(url + "/inference", fields)
+            assert status == 200
+            solo[name] = (body, sec)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        fns = window_fns(ctx)
+        graphs = sum(f.graphs for f in fns) - g0
+        capture_ms = (sum(f.capture_us for f in fns) - c0) / 1e3
+        native = sorted(k[2] for k in ctx._window_fns if len(k) == 3 and k[1] == "native")
+        peak = torch.cuda.max_memory_allocated()
+        batched_step_ms(ctx, [seeded_audio(30.0, 1 + i) for i in range(4)])
+    finally:
+        TS.transcribe_joining, TT.compute_token_level_timestamps = joining, token_ts
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    log(f"  server: load_s={t_load:.3f} warmup_s={t_warm:.3f} kv_itype={ctx.kv_itype}")
+    log(f"  batcher (the 6 concurrent requests): rounds={rounds} coalesced_rounds={coalesced} "
+        f"largest_round={largest} round_ms={round_ms:.3f} "
+        f"round_ms_mean={round_ms / max(rounds, 1):.3f} native_decoders_W={native}")
+    # the 4 requests one after another, estimated from the replayed ones
+    solo_greedy = len(greedy) / SOLO_GREEDY * sum(solo[n][1] for n, _ in greedy[:SOLO_GREEDY])
+    log(f"  4 concurrent greedy requests: wall_s={greedy_wall:.3f} "
+        f"sequential_s_est={solo_greedy:.3f} (4/{SOLO_GREEDY} x the {SOLO_GREEDY} replayed "
+        f"alone) ratio={greedy_wall / solo_greedy:.3f} "
+        f"per_request_s={[round(conc[n][1], 3) for n, _ in greedy]} "
+        f"solo_s={[round(solo[n][1], 3) for n, _ in greedy[:SOLO_GREEDY]]}")
+    breakdown("4 concurrent greedy, per-request timers", *conc_timers)
+    breakdown(f"{SOLO_GREEDY} of those greedy alone, per-request timers", *solo_timers)
+    solo_beam = sum(solo[n][1] for n, _ in beam)
+    log(f"  2 concurrent beam-5 requests: wall_s={beam_wall:.3f} "
+        f"sum_of_solo_walls_s={solo_beam:.3f} ratio={beam_wall / solo_beam:.3f}")
+    log(f"  graphs_captured={graphs} capture_ms={capture_ms:.3f} "
+        f"max_memory_allocated={peak}")
+    log(f"  server path launches={json.dumps(launches)}")
+    for name, _ in greedy + beam:
+        same = conc[name][0] == solo[name][0] if name in solo else "not replayed"
+        first = conc[name][0].split("\n\n")[0].replace("\n", " | ")
+        log(f"    {name}: concurrent == solo: {same} segments={conc[name][0].count('-->')} "
+            f"first={first!r}")
+        assert same, (name, conc[name][0], solo[name][0])
+        assert conc[name][0].count("-->") >= 1
+    assert largest >= 2 and coalesced >= 1, (rounds, coalesced, largest)
+    assert launches["qmmt_fused"] > 0 and launches["self_attention_qkv"] > 0, launches
+    return launches
+
+
+def run_cli_parallel(TC, TB, counters, model_path: str, wav: str, out_dir: str) -> dict:
+    """The port's whisper-cli with -p 4 --kv-itype q8 (four chunks of one
+    40 s file whose windows batch natively; beam 5 by default): its
+    launches, the batcher's rounds, and the outputs' form."""
+    sizes = []
+    inner = TB.WindowBatcher._take_locked
+
+    def counted(self):
+        sizes.append(len(self.pending))
+        return inner(self)
+
+    for fn in counters:
+        fn.launches = 0
+    base = os.path.join(out_dir, "cli_p4_q8")
+    TB.WindowBatcher._take_locked = counted
+    t0 = time.perf_counter()
+    try:
+        # the segments it prints go to a file (the output files hold them)
+        with open(base + ".stdout", "w") as out, contextlib.redirect_stdout(out):
+            rc = TC.run(["-m", model_path, "-f", wav, "-p", "4", "--kv-itype", "q8",
+                         "-otxt", "-ojf", "-of", base, "-np"])
+    finally:
+        TB.WindowBatcher._take_locked = inner
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    assert rc == 0
+    with open(base + ".json") as f:
+        segs = json.load(f)["transcription"]
+    log(f"  whisper-cli -p 4 --kv-itype q8: cli_wall_s={wall:.3f} segments={len(segs)} "
+        f"batcher_rounds={len(sizes)} round_sizes={sizes}")
+    log(f"    launches={json.dumps(launches)}")
+    for sg in segs[:4]:
+        log(f"    [{sg['offsets']['from']:7d} -> {sg['offsets']['to']:7d}] {sg['text']!r}")
+    assert segs and all(0 <= t["id"] < 51866 for sg in segs for t in sg["tokens"])
+    assert max(sizes) >= 2, sizes
+    assert launches["self_attend_q8"] > 0 and launches["qmmt_fused"] > 0, launches
+    return launches
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -1012,6 +1426,7 @@ def main() -> int:
     import whisper_tpu_torch as W
     from whisper_tpu_torch.audio.io import write_wav
     from whisper_tpu_torch.cli import bench_cli as TB
+    from whisper_tpu_torch.cli import server as TS
     from whisper_tpu_torch.cli import transcribe as TC
     from whisper_tpu_torch.decoding import device_loop as DL
     from whisper_tpu_torch.decoding import graphs as G
@@ -1023,6 +1438,7 @@ def main() -> int:
     from whisper_tpu_torch.ops import decode_attn as DA
     from whisper_tpu_torch.ops import enc_attn as EA
     from whisper_tpu_torch.ops import qmm as QM
+    from whisper_tpu_torch.runtime import batching as TBA
     from whisper_tpu_torch.utils.synth import write_synth_model
 
     # the plain versions are the references: full f32 products, no TF32
@@ -1035,7 +1451,7 @@ def main() -> int:
         f"cuda={torch.version.cuda}")
     log(f"  nvidia-smi: {smi}")
 
-    log("== 2. build")
+    heading("2. build", t_start)
     info = _cuda.build_all()
     for name, d in info.items():
         log(f"  {name}: build_s={d['seconds']:.2f} {d['path']}")
@@ -1043,37 +1459,39 @@ def main() -> int:
             if any(k in line for k in ("Compiling entry", "Used", "spill")):
                 log(f"    {line.strip()}")
 
-    log("== 3. kernels against their plain versions (turbo shapes)")
+    heading("3. kernels against their plain versions (turbo shapes)", t_start)
     k1 = check_qmmt(dev, Q, QM)
     k3 = check_self_attend_q8(dev, DA)
     k4 = check_self_attention_qkv(dev, EA)
     k5 = check_qmm(dev, QM)
     k6 = check_flash(dev, FA, info["flash_attn"]["ptxas"])
 
-    log("== 4. paths: q5_0 large-v3-turbo, load() + transcribe(), flash encode, "
-        "whisper-cli, whisper-bench")
+    heading("4. paths: q5_0 large-v3-turbo, load() + transcribe(), flash encode, "
+            "whisper-cli, whisper-bench", t_start)
     counters = G.COUNTED
     pcm = seeded_audio(40.0, seed=0)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "large-v3-turbo-q5_0.bin")
-        t0 = time.perf_counter()
-        write_synth_model(path, LARGE_V3_TURBO, seed=0, qtype="q5_0", decisive=True)
-        log(f"  synth_s={time.perf_counter() - t0:.1f} bytes={os.path.getsize(path)}")
-        ctx, segs_q8, launches = run_main_path(W, counters, path, "q8", pcm)
-        graph_matches_eager(ctx, counters, "greedy", seeks=(0,))
-        profile_window(W, ctx, pcm[:16000 * 30], "graphs")
-        with eager_windows(ctx):
-            profile_window(W, ctx, pcm[:16000 * 30], "eager")
-        flag_period_sweep(W, DL, ctx, pcm[:16000 * 30])
-        n_flash = flash_encode(M, FA, EA, ctx, pcm)
-        del ctx
-        ctx, segs_f16, launches_f16 = run_main_path(W, counters, path, "f16", pcm)
-        profile_window(W, ctx, pcm[:16000 * 30], "graphs", beam=True)
-        del ctx
-        wav = os.path.join(tmp, "audio-40s.wav")
-        write_wav(wav, pcm)
-        cli_f16 = run_cli(W, TC, counters, path, wav, tmp, [])
-        cli_q8 = run_cli(W, TC, counters, path, wav, tmp, ["--kv-itype", "q8"])
+    # the turbo file serves phases 4 and 6; removed when main returns
+    turbo = tempfile.TemporaryDirectory()
+    tmp = turbo.name
+    path = os.path.join(tmp, "large-v3-turbo-q5_0.bin")
+    t0 = time.perf_counter()
+    write_synth_model(path, LARGE_V3_TURBO, seed=0, qtype="q5_0", decisive=True)
+    log(f"  synth_s={time.perf_counter() - t0:.1f} bytes={os.path.getsize(path)}")
+    ctx, segs_q8, launches = run_main_path(W, counters, path, "q8", pcm)
+    graph_matches_eager(ctx, counters, "greedy", seeks=(0,))
+    profile_window(W, ctx, pcm[:16000 * 30], "graphs")
+    with eager_windows(ctx):
+        profile_window(W, ctx, pcm[:16000 * 30], "eager")
+    flag_period_sweep(W, DL, ctx, pcm[:16000 * 30])
+    n_flash = flash_encode(M, FA, EA, ctx, pcm)
+    del ctx
+    ctx, segs_f16, launches_f16 = run_main_path(W, counters, path, "f16", pcm)
+    profile_window(W, ctx, pcm[:16000 * 30], "graphs", beam=True)
+    del ctx
+    wav = os.path.join(tmp, "audio-40s.wav")
+    write_wav(wav, pcm)
+    cli_f16 = run_cli(W, TC, counters, path, wav, tmp, [])
+    cli_q8 = run_cli(W, TC, counters, path, wav, tmp, ["--kv-itype", "q8"])
     same = [(s.t0, s.t1, s.text) for s in segs_q8] == [(s.t0, s.t1, s.text) for s in segs_f16]
     log(f"  q8 and f16 kv caches give the same segments: {same}")
     for name in ("qmmt_fused", "self_attend_q8", "self_attention_qkv"):
@@ -1094,9 +1512,14 @@ def main() -> int:
     log(f"  whisper-bench -w 2: qmm launches={n_qmm}")
     assert n_qmm > 0
 
-    log("== 5. small decisive model: the card against the CPU")
+    heading("5. small decisive model: the card against the CPU", t_start)
     with tempfile.TemporaryDirectory() as tmp:
         card_matches_cpu(tmp)
+
+    heading("6. batched serving: whisper-server with concurrent requests, whisper-cli -p 4", t_start)
+    serve_batched(TS, counters, path, turbo.name)
+    run_cli_parallel(TC, TBA, counters, path, wav, turbo.name)
+    turbo.cleanup()
 
     def entry(name, src, replaces, agg, n_launches):
         b_ms, by = bound_ms(agg["bytes"], agg["flops"])

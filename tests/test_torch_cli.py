@@ -3,12 +3,13 @@
 whisper-cli: the port with -ng (the CPU) and the JAX CLI (CPU) on the same
 DECISIVE synthetic file (n_text_layer 3, so timestamps are on) and the same
 seeded wav, at the default flags (beam 5, best-of 5), at -bs 1 (greedy), at
--nfa and at -ml 16 -sow.  The text formats must be byte-equal.  The JSON
-files must be equal once parsed, with `systeminfo` set aside (it names the
-package) and each token's `p` within 2e-6: the writer rounds p to six
-decimals, and the two packages' f32 sums differ in order, which can move
-the sixth decimal by one.  That comparison lives in
-test_torch_cli_outputs.py, which imports this file's fixtures.
+-nfa, at -ml 16 -sow and at -p 2 (two chunks batched natively).  The text
+formats must be byte-equal.  The JSON files must be equal once parsed, with
+`systeminfo` set aside (it names the package) and each token's `p` within
+2e-6: the writer rounds p to six decimals, and the two packages' f32 sums
+differ in order, which can move the sixth decimal by one.  The -p 1
+comparisons live in test_torch_cli_outputs.py, which imports this file's
+fixtures.
 
 whisper-bench: -w 1 and -w 2 at a small size on the CPU print the JAX
 package's line formats; without a card the commands raise.
@@ -95,13 +96,33 @@ def _assert_json_equal(a, b, where="json"):
 
 @pytest.mark.parametrize("flags,name", [
     (["-vad"], "-vad"), (["--grammar", "g.gbnf", "--grammar-rule", "root"], "--grammar"),
-    (["-dtw", "tiny.en"], "-dtw"), (["-p", "2"], "-p > 1"),
+    (["-dtw", "tiny.en"], "-dtw"),
     (["--precision", "ggml_cpu_f16"], "--precision ggml_cpu_f16")])
 def test_cli_refuses_unported_flags(files, capsys, flags, name):
     model, wav = files
     rc = TC.run(["-m", model, "-f", wav, "-ng", *flags])
     assert rc != 0
     assert f"not ported to whisper_tpu_torch yet: {name}" in capsys.readouterr().err
+
+
+def test_cli_processors_match_jax(files, tmp_path, global_flags):
+    # -p 2: two chunks whose windows batch natively (decoding/parallel.py),
+    # at the default flags (beam 5, best-of 5); the text formats byte-equal
+    # and the JSON equal, as test_torch_cli_outputs.py holds -p 1
+    jbase, tbase = _run_both(files, tmp_path, ["-p", "2"])
+    for ext in TEXT:
+        with open(f"{jbase}.{ext}", "rb") as f:
+            want = f.read()
+        with open(f"{tbase}.{ext}", "rb") as f:
+            assert f.read() == want, ext
+    assert want.count(b"\n") >= 2
+    with open(f"{jbase}.json") as f:
+        jj = json.load(f)
+    with open(f"{tbase}.json") as f:
+        tj = json.load(f)
+    jj.pop("systeminfo")
+    tj.pop("systeminfo")
+    _assert_json_equal(tj, jj)
 
 
 def _run_module(args):

@@ -1,6 +1,9 @@
 """Card tests of the port: each Hopper kernel against its plain PyTorch
-version on the same CUDA inputs, the window loop's CUDA graphs against its
-eager loop, and the slice on the card against the slice on the CPU.  They need a CUDA card and skip without one (run them on
+version on the same CUDA inputs (the decode matmul and decode attention
+also at the rows of natively batched windows), the window loop's CUDA
+graphs against its eager loop (one window, and W windows batched), the
+batcher's concurrent requests against sequential ones, and the slice on
+the card against the slice on the CPU.  They need a CUDA card and skip without one (run them on
 the card with `python -m pytest tests/test_torch_gpu.py -m gpu`).
 
 Tolerances: qmmt 1e-4 of max |y| (f32 sums in another order over K up to
@@ -238,3 +241,162 @@ def test_transcribe_card_matches_cpu(cuda, tmp_path):
     from chip_smoke import card_matches_cpu
 
     card_matches_cpu(str(tmp_path))
+
+
+# rows of natively batched steps: W x G for W up to 8 windows of 1 or 5
+# lanes, and of the prompt passes of 4 windows, 4 x bucket (4, 32, 256), on
+# the turbo decoder's shapes with the prologue and epilogue each has there:
+# the layer norm on the 1280-wide rows (qkv with its bias, mlp0 with GELU,
+# the logits head), the residual on mlp1's 5120-wide ones.  The layer
+# norm's statistics are summed in f64 on both sides: summed in f32 in two
+# orders, they rounded some normalised rows to bf16 one ulp apart, past
+# this bound, from 128 rows of the logits head on.
+@pytest.mark.parametrize("T", [2, 4, 8, 10, 16, 20, 40, 128, 1024])
+@pytest.mark.parametrize("K,R,use", [(1280, 3840, "qkv"), (1280, 5120, "mlp0"),
+                                     (5120, 1280, "mlp1"), (1280, 51866, "logits")])
+def test_qmmt_fused_kernel_batched_rows(cuda, T, K, R, use):
+    from chip_smoke import same_under_graph
+
+    codes, scales, mins = _planes(Q.GGML_TYPE_Q5_0, K, R, 4, cuda)
+    g = torch.Generator().manual_seed(T)
+    x, lw, lb, b, res = (torch.randn(s, generator=g).to(cuda)
+                         for s in ((T, K), (K,), (K,), (R,), (T, R)))
+    kw = {"qkv": dict(ln_w=lw, ln_b=lb, bias=b), "logits": dict(ln_w=lw, ln_b=lb),
+          "mlp0": dict(ln_w=lw, ln_b=lb, bias=b, act="gelu"),
+          "mlp1": dict(bias=b, residual=res)}[use]
+    call = lambda: QM.qmmt_fused(x, codes, scales, mins, dtype=torch.bfloat16, **kw)
+    n = QM.qmmt_fused.launches
+    y = call()
+    assert QM.qmmt_fused.launches == n + 1
+    ref = QM.qmmt_fused_plain(x, codes, scales, mins, dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert same_under_graph(call)
+
+
+# the bare product and mlp1's residual epilogue on both product routes
+# (mma.sync from QM.MMA_MIN_T rows, CUDA-core FMAs below) against an f64
+# computation on the same bf16-rounded operands, at 5 to 64 rows
+@pytest.mark.parametrize("T", [5, 8, 16, 20, 32, 33, 40, 48, 64])
+@pytest.mark.parametrize("route", ["mma", "fma"])
+def test_qmmt_fused_product_near_f64(cuda, T, route, monkeypatch):
+    K, R = 5120, 1280
+    codes, scales, _ = _planes(Q.GGML_TYPE_Q5_0, K, R, 4, cuda)
+    w64 = codes.double() * scales.double().repeat_interleave(32, 0)     # (K, R)
+    g = torch.Generator().manual_seed(T)
+    x, res, b = (torch.randn(s, generator=g).to(cuda) for s in ((T, K), (T, R), (R,)))
+    exact = x.to(torch.bfloat16).double() @ w64 + b.double() + res.double()
+    monkeypatch.setattr(QM, "MMA_MIN_T", QM.MMA_MIN_T if route == "mma" else 1 << 30)
+    y = QM.qmmt_fused(x, codes, scales, bias=b, residual=res, dtype=torch.bfloat16)
+    assert (y.double() - exact).abs().max() <= 1e-4 * exact.abs().max()
+
+
+# K3 at the prompt pass of 4 natively batched windows: G = bucket query
+# rows, A = the prompt's attention bucket, C = the native cache's cells,
+# and the mask the prompt pass builds (causal, each row's left-pad cells
+# hidden, a pad query seeing itself)
+@pytest.mark.parametrize("G", [4, 32, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_self_attend_q8_kernel_native_prompt(cuda, G, dtype, tol):
+    from whisper_tpu_torch.decoding import device_loop as DL
+    from whisper_tpu_torch.models.whisper import model as M
+
+    B, L, H, D = 4, 4, 20, 64
+    A = next(a for a in M.attn_ctx_buckets(448) if a >= G)
+    C = max(448, G + 220)
+    g = torch.Generator().manual_seed(G)
+    kv = torch.randint(-127, 128, (L, B, H, 2, C, D), generator=g, dtype=torch.int8)
+    scale = 0.01 + 0.02 * torch.rand((L, B, 2, C), generator=g)
+    qkv = torch.randn((B, G, 3 * H * D), generator=g)
+    lens = [1, G // 2 + 1, G - 1, G]
+    kv, scale, qkv = (a.to(cuda) for a in (kv, scale, qkv))
+    _, mask_prompt, _ = DL.prompt_pad_masks(G, C, lens, cuda)
+    mask = M.decode_mask(0, G, A, cuda, mask_prompt)[:, 0].expand(B, G, A).contiguous()
+    q = qkv[..., :H * D].reshape(B, G, H, D).transpose(1, 2)
+    n = DA.self_attend_q8.launches
+    out = DA.self_attend_q8(kv, scale, q, mask, l=L - 1, attn_ctx=A, dtype=dtype)
+    assert DA.self_attend_q8.launches == n + 1
+    ref = DA.self_attend_q8_plain(kv, scale, q, mask, l=L - 1, attn_ctx=A, dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= tol * ref.abs().max()
+
+
+# B = W x G rows of natively batched windows, each with 0 to 7 left-pad
+# cells masked; C = 476 is a native cache of 256 prompt cells + 220 steps
+@pytest.mark.parametrize("B", [2, 10, 40])
+@pytest.mark.parametrize("C,A", [(448, 128), (448, 448), (476, 476)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_self_attend_q8_kernel_pad_rows(cuda, B, C, A, dtype, tol):
+    L, H, D = 4, 20, 64
+    g = torch.Generator().manual_seed(B)
+    kv = torch.randint(-127, 128, (L, B, H, 2, C, D), generator=g, dtype=torch.int8)
+    scale = 0.01 + 0.02 * torch.rand((L, B, 2, C), generator=g)
+    qkv = torch.randn((B, 1, 3 * H * D), generator=g)
+    shift = torch.randint(0, 8, (B,), generator=g)
+    cells = torch.arange(A)[None, None, :]
+    mask = torch.where(cells >= shift[:, None, None], 0.0, float("-inf")).contiguous()
+    kv, scale, qkv, mask = (a.to(cuda) for a in (kv, scale, qkv, mask))
+    q = qkv[..., :H * D].reshape(B, 1, H, D).transpose(1, 2)
+    out = DA.self_attend_q8(kv, scale, q, mask, l=L - 1, attn_ctx=A, dtype=dtype)
+    ref = DA.self_attend_q8_plain(kv, scale, q, mask, l=L - 1, attn_ctx=A, dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= tol * ref.abs().max()
+    assert torch.equal(out, DA.self_attend_q8(kv, scale, q, mask, l=L - 1, attn_ctx=A,
+                                              dtype=dtype))
+
+
+@pytest.mark.parametrize("kv_itype", ["q8", "f16"])
+@pytest.mark.parametrize("strategy,n_windows,n_lanes", [
+    ("greedy", 2, 1), ("greedy", 4, 1), ("beam", 2, 5)])
+def test_native_window_graphs_match_eager(cuda, tmp_path_factory, strategy, n_windows,
+                                         n_lanes, kv_itype):
+    from chip_smoke import native_graph_matches_eager
+    from whisper_tpu_torch.decoding.graphs import COUNTED
+
+    ctx = _decisive_ctx(tmp_path_factory, kv_itype)
+    native_graph_matches_eager(ctx, COUNTED, strategy, n_windows, n_lanes)
+
+
+def test_native_window_graphs_sample_at_t_above_0(cuda, tmp_path_factory):
+    from chip_smoke import native_graph_matches_eager
+    from whisper_tpu_torch.decoding.graphs import COUNTED
+
+    ctx = _decisive_ctx(tmp_path_factory, "q8")
+    native_graph_matches_eager(ctx, COUNTED, "greedy", 2, 3, temperature=0.7)
+
+
+def test_joining_threads_match_sequential_calls(cuda, tmp_path_factory):
+    # 4 threads transcribing 4 clips through one batcher give the segments
+    # 4 calls one after another give; some rounds batch several windows
+    import threading
+
+    import whisper_tpu_torch as W
+    from whisper_tpu_torch.runtime.batching import WindowBatcher, transcribe_joining
+
+    ctx = _decisive_ctx(tmp_path_factory, "q8")
+    clips = [(0.1 * np.random.default_rng(20 + i).standard_normal(16000 * 35))
+             .astype(np.float32) for i in range(4)]
+    params = W.TranscribeParams()
+    batcher = WindowBatcher(ctx, 0, max_wait_s=2.0)
+    got, errors = [None] * 4, []
+
+    def run(i):
+        try:
+            got[i] = transcribe_joining(ctx, params, clips[i], batcher)[0]
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert batcher.n_coalesced_rounds >= 1 and batcher.max_round_size >= 2
+    for i, clip in enumerate(clips):
+        want = transcribe_joining(ctx, params, clip, WindowBatcher(ctx, 0))[0]
+        assert [(s.t0, s.t1, s.text) for s in got[i]] == \
+            [(s.t0, s.t1, s.text) for s in want], i
+        assert len(want) >= 2

@@ -9,8 +9,10 @@ It runs on the CUDA card and raises without one; -ng (whisper-cli's
 use_gpu=false) runs the plain PyTorch path on the CPU.  -nfa turns the
 flash route off and sets WTPU_ENC_ATTN and WTPU_DECODE_ATTN to `xla`, so
 the encoder and a q8 cache take the plain graphs, as in the JAX package.
-Flags whose modules are not ported yet (-vad, --grammar, -dtw, -p > 1,
---precision ggml_cpu_f16) exit with an error and a non-zero code.
+-p N splits each file into N chunks whose window decodes batch natively
+on the card (decoding/parallel.py, runtime/batching.py).  Flags whose
+modules are not ported yet (-vad, --grammar, -dtw, --precision
+ggml_cpu_f16) exit with an error and a non-zero code.
 """
 
 from __future__ import annotations
@@ -153,7 +155,6 @@ def _unported(args) -> List[str]:
         ("-vad", args.vad),
         ("--grammar", bool(args.grammar)),
         ("-dtw", bool(args.dtw)),
-        ("-p > 1", args.processors > 1),
         ("--precision ggml_cpu_f16", args.precision == "ggml_cpu_f16"),
     ) if on]
 
@@ -265,11 +266,16 @@ def run(argv: Optional[List[str]] = None) -> int:
                   file=sys.stderr)
 
         t0 = time.perf_counter()
-        if args.profile:
-            segments, trace_path = _profiled(lambda: wt.transcribe(ctx, p, mono),
-                                             ctx, args.profile)
+        if args.processors > 1:
+            from ..decoding.parallel import transcribe_parallel
+
+            run_file = lambda: transcribe_parallel(ctx, p, mono, args.processors)
         else:
-            segments = wt.transcribe(ctx, p, mono)
+            run_file = lambda: wt.transcribe(ctx, p, mono)
+        if args.profile:
+            segments, trace_path = _profiled(run_file, ctx, args.profile)
+        else:
+            segments = run_file()
         dt = time.perf_counter() - t0
         if args.profile and not args.no_prints:
             print(f"whisper_tpu_torch: profiler trace written to {trace_path}",

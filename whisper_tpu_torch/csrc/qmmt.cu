@@ -10,9 +10,12 @@
 //   scales_t / mins_t (K/qk, R) f32 with a row pitch of pitch_s floats;
 //   ln_w, ln_b (K,); bias (R,); res (T, R) f32; out (T, R) f32.
 //
-// Numerics follow the TPU kernel: layer norm in f32 (two passes: mean, then
-// the mean square deviation), the normalised rows rounded to bf16 when the
-// compute type is bf16, each qk-block's dot accumulated in f32 and scaled by
+// Numerics follow the TPU kernel, but for the layer norm's statistics:
+// mean and variance from one pass of f64 sums (the TPU kernel's two f32
+// passes, summed in another order here, would round some normalised rows
+// to bf16 apart from the plain version's), rounded to f32; the
+// normalisation in f32, the normalised rows rounded to bf16 when
+// the compute type is bf16, each qk-block's dot accumulated in f32 and scaled by
 // that block's scale afterwards, affine formats adding sum(x_blk) * min per
 // block, then bias, tanh-GELU and the residual in f32.
 //
@@ -98,23 +101,27 @@ __device__ __forceinline__ void codes4(uint32_t w, float c[4]) {
   c[3] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7653)) - 8388736.0f;
 }
 
-// Sums of TT values per thread over the block; every thread gets all TT.
-template <int TT>
-__device__ __forceinline__ void block_sums(float v[TT], float* scratch /* kWarps*TT */) {
+// Sums of N f64 values per thread over the block (the layer norm's
+// statistics); every thread gets all N.  scratch holds kWarps*N.
+template <int N>
+__device__ __forceinline__ void block_sums(double v[N], double* scratch) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
-  for (int t = 0; t < TT; ++t) v[t] = wtt_warp_sum(v[t]);
+  for (int t = 0; t < N; ++t) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v[t] += __shfl_xor_sync(WTT_FULL_MASK, v[t], off);
+  }
   __syncthreads();  // scratch may still be read from a previous call
   if (lane == 0) {
 #pragma unroll
-    for (int t = 0; t < TT; ++t) scratch[warp * TT + t] = v[t];
+    for (int t = 0; t < N; ++t) scratch[warp * N + t] = v[t];
   }
   __syncthreads();
 #pragma unroll
-  for (int t = 0; t < TT; ++t) {
-    float s = 0.f;
+  for (int t = 0; t < N; ++t) {
+    double s = 0.0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += scratch[w * TT + t];
+    for (int w = 0; w < kWarps; ++w) s += scratch[w * N + t];
     v[t] = s;
   }
 }
@@ -179,8 +186,8 @@ __global__ void __launch_bounds__(kThreads) qmmt_kernel(const Args a) {
   float* xd = sm + (affine ? nbs_max * BC : 0);                       // (TT, ks)
   float* xsum = xd + TT * a.ks;                                       // (TT, nbs)
   float* red = xsum + xsum_floats(TT, nbs_max);                       // (warps, TT, 64)
-  float* scratch = red + kWarps * TT * BC;                            // (warps, TT)
-  float* xraw = scratch + kWarps * TT;                                // (tt, K | ks)
+  float* scratch = red + kWarps * TT * BC;                            // (warps, 2 TT) f64
+  float* xraw = scratch + 4 * kWarps * TT;                            // (tt, K | ks)
   // the tensor-core path keeps the activation rows in bf16, rows padded so
   // that the 8 rows of a fragment load fall in distinct banks
   __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(xd);           // (TT, ks + 16)
@@ -264,40 +271,36 @@ __global__ void __launch_bounds__(kThreads) qmmt_kernel(const Args a) {
     }
     __syncthreads();
     if (ln) {
-      // two passes over the staged rows, float4 at a time, all rows at once
+      // one pass over the staged rows, float4 at a time, all rows at once:
+      // sum(x) and sum(x^2) in f64 (x^2 exact there), so the statistics are
+      // the f32 roundings of (nearly) exact ones, as the plain version's,
+      // and the normalised rows round to bf16 alike on both (f32 sums in
+      // two orders flip some of them one bf16 ulp apart once there are
+      // ~10^5 of them)
       const int k4n = a.K / 4;
       const float4* xr4 = reinterpret_cast<const float4*>(xraw);
+      double* dscratch = reinterpret_cast<double*>(scratch);
+      double acc[2 * TT];  // sum(x) of each row, then sum(x^2)
 #pragma unroll
-      for (int t = 0; t < TT; ++t) mean[t] = 0.f;
+      for (int t = 0; t < 2 * TT; ++t) acc[t] = 0.0;
       for (int i = tid; i < k4n; i += kThreads) {
 #pragma unroll
         for (int t = 0; t < TT; ++t) {
           if (t < tt) {
             const float4 v = xr4[t * k4n + i];
-            mean[t] += (v.x + v.y) + (v.z + v.w);
+            const double x0 = v.x, x1 = v.y, x2 = v.z, x3 = v.w;
+            acc[t] += (x0 + x1) + (x2 + x3);
+            acc[TT + t] += (x0 * x0 + x1 * x1) + (x2 * x2 + x3 * x3);
           }
         }
       }
-      block_sums<TT>(mean, scratch);
+      block_sums<2 * TT>(acc, dscratch);
 #pragma unroll
       for (int t = 0; t < TT; ++t) {
-        mean[t] /= a.K;
-        rstd[t] = 0.f;
+        const double m = acc[t] / a.K;
+        mean[t] = (float)m;
+        rstd[t] = (float)(1.0 / sqrt(acc[TT + t] / a.K - m * m + (double)a.eps));
       }
-      for (int i = tid; i < k4n; i += kThreads) {
-#pragma unroll
-        for (int t = 0; t < TT; ++t) {
-          if (t < tt) {
-            const float4 v = xr4[t * k4n + i];
-            const float d0 = v.x - mean[t], d1 = v.y - mean[t];
-            const float d2 = v.z - mean[t], d3 = v.w - mean[t];
-            rstd[t] += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
-          }
-        }
-      }
-      block_sums<TT>(rstd, scratch);
-#pragma unroll
-      for (int t = 0; t < TT; ++t) rstd[t] = 1.0f / sqrtf(rstd[t] / a.K + a.eps);
     }
 #pragma unroll
     for (int u = 0; u < kPerThread; ++u) {
@@ -544,7 +547,7 @@ template <int TT, bool MMA>
 cudaError_t launch(Args a, cudaStream_t stream) {
   const int nbs = a.ks / a.qk;
   const size_t floats = (size_t)nbs * BC * (a.mins != nullptr ? 2 : 1) + (size_t)TT * a.ks +
-                        xsum_floats(TT, nbs) + (size_t)kWarps * TT * BC + kWarps * TT +
+                        xsum_floats(TT, nbs) + (size_t)kWarps * TT * BC + 4 * kWarps * TT +
                         (size_t)(a.T < TT ? a.T : TT) * (a.ln_w != nullptr ? a.K : a.ks);
   const int n_slices = (a.K + a.ks - 1) / a.ks;
   size_t body = (size_t)a.ks * BC + sizeof(float) * floats;

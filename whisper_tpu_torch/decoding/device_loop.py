@@ -1,12 +1,17 @@
 """Window decoding with the token-loop state resident on the device.
 
-Port of whisper_tpu/decoding/device_loop.py for the GREEDY strategy (one
-lane at t=0; `best_of` independent sampling lanes at t>0) and BEAM SEARCH at
+Port of whisper_tpu/decoding/device_loop.py: the GREEDY strategy (one lane
+at t=0; `best_of` independent sampling lanes at t>0) and BEAM SEARCH at
 t=0 (deterministic top-k candidates, cumulative-logprob ranking with the
 host loop's stable tie-break, rolling-hash sequence dedup, parent gathers
-of the KV cache and the token buffers).  The JAX package's native
-window x beam batching (`decode_windows_native`, grouped selection) is not
-ported.
+of the KV cache and the token buffers), for one window or, natively
+batched, for W windows at once (`make_window_decoder(n_windows=W)`, the
+JAX package's `decode_windows_native`): W windows x G lanes ride the
+decoder's row axis, prompts left-padded to the bucket so the cache keeps
+one write head, with per-row positions, an additive pad mask, grouped
+beam selection (`_beam_select_grouped`) and each window's cross-K/V shared
+by its lanes (`decode_step(xkv_group=G)`).  The JAX package's vmapped
+window mode is not ported (the batcher never takes it).
 
 The JAX package runs a window's token loop as one `lax.while_loop` per
 attention-bucket segment.  Here one step function updates a LoopState of
@@ -14,7 +19,7 @@ tensors in place: logit filters, selection, timestamp and stop rules, the
 KV cache and the token buffers, with the step index and every window input
 as device tensors.  On the card each segment's step is one captured CUDA
 graph, which the host replays step by step; it reads the "all lanes done"
-flag once every FLAG_EVERY steps and the result buffers once per window.
+flag once every FLAG_EVERY steps and the result buffers once per call.
 On the CPU the same step runs eagerly, with the same flag reads.  Step i's
 attention context comes from the same bucket segments as the JAX loop's;
 the host picks the segment, since it counts the steps.
@@ -24,9 +29,11 @@ cap and the denormal `tid` rule (_EXPF_ZERO_LP): a device that flushes
 denormals would flip the reference's `sum(probs) > 0` test early, so the
 test is made on the max timestamp logprob instead.
 
-At t>0 lanes draw from a torch.Generator seeded with `rng_seed`; JAX's
-PRNG bits cannot be reproduced, so t>0 agreement with the JAX package is
-statistical.  At t=0 selection is argmax and exact.
+At t>0 each window's lanes draw from a torch.Generator of that window,
+seeded with its `rng_seed`, so a window draws the same numbers batched or
+solo, whatever shares its batch.  JAX's PRNG bits cannot be reproduced,
+so t>0 agreement with the JAX package is statistical.  At t=0 selection is
+argmax and exact.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 
 from ..models.whisper import model as M
 from ..models.whisper.hparams import CHUNK_SIZE, WhisperHParams
+from . import graphs as CG
 from .logits import LogitFilterTables
 
 NEG_INF = float("-inf")
@@ -179,11 +187,14 @@ def _token_stats(probs, logprobs, tok, p, beg: int):
     return torch.where(is_ts_tok, tok, tid), torch.where(is_ts_tok, p, pt), sum_ts
 
 
-def _sample(logprobs, probs, temperature: float, generator, beg: int):
+def _sample(logprobs, probs, temperature: float, generators, beg: int,
+            row_temp=None):
     """whisper_sample_token: greedy at t=0, categorical at t>0 (the host
     float `temperature` picks the branch; `_apply_filters` already scaled
-    the logits by the device value).  Returns per-lane (id, p, plog, tid,
-    pt, ptsum)."""
+    the logits by the device values).  At t>0 the rows are windows of equal
+    lane counts, window-major: window w's lanes draw from `generators[w]`,
+    and rows whose `row_temp` (device, (B,)) is 0 keep the argmax.  Returns
+    per-lane (id, p, plog, tid, pt, ptsum)."""
     V = probs.shape[-1]
     idx = torch.arange(V, device=probs.device)
     if temperature < 1e-6:
@@ -192,8 +203,11 @@ def _sample(logprobs, probs, temperature: float, generator, beg: int):
         # one categorical draw per lane as argmax(p / Exp(1)): what
         # torch.multinomial does for one sample, without its host-side
         # check of the probabilities, which a CUDA graph cannot capture
-        q = torch.empty_like(probs).exponential_(1, generator=generator)
-        tok = (probs / q).argmax(-1)
+        draws = [torch.empty((probs.shape[0] // len(generators), V), dtype=probs.dtype,
+                             device=probs.device).exponential_(1, generator=g)
+                 for g in generators]
+        q = draws[0] if len(draws) == 1 else torch.cat(draws)
+        tok = torch.where(row_temp < 1e-6, probs.argmax(-1), (probs / q).argmax(-1))
     p = probs.gather(-1, tok[:, None])[:, 0]
     plog = logprobs.gather(-1, tok[:, None])[:, 0]
 
@@ -227,56 +241,74 @@ def _mul32(h: torch.Tensor, m: int) -> torch.Tensor:
 
 def _beam_select_core(logprobs, live, sum_logprobs, seq_hash, step_i, beg: int):
     """Device-side beam step (reference: src/whisper.cpp:7303-7354 and the
-    host loop in full.py), as the JAX package's `_beam_select_core`.
+    host loop in full.py), as the JAX package's `_beam_select_core`, over
+    one group of B beams, (B, V), or a leading axis of N independent
+    groups, (N, B, V).
 
     Each live beam proposes its top-B tokens (ties to the lower id, as
     lax.top_k); candidates rank by cumulative sequence logprob with the
     stable flattened (beam, k) tie-break, the host sort key (-score,
     decoder_idx); consecutive duplicate sequences (rolling hashes) are
     skipped when step_i > 0 (a host int or a 0-d device tensor); surplus
-    beams wrap to the best candidate.  Returns (parent per beam, token,
-    score, new hashes (B, 2))."""
-    B = logprobs.shape[0]
+    beams wrap to the best candidate.  Returns (parent per beam within its
+    group, token, score, new hashes (..., B, 2))."""
+    if logprobs.dim() == 2:
+        return tuple(a[0] for a in _beam_select_core(
+            logprobs[None], live[None], sum_logprobs[None], seq_hash[None],
+            step_i, beg))
+    N, B = logprobs.shape[:2]
     dev = logprobs.device
     vals, ids = torch.sort(logprobs, dim=-1, descending=True, stable=True)
-    vals, ids = vals[:, :B], ids[:, :B]                        # (B, B)
-    cand_score = (sum_logprobs[:, None] + vals).masked_fill(~live[:, None], NEG_INF)
-    h1 = (_mul32(seq_hash[:, 0:1], 1000003) + ids + 1) & _MASK32
-    h2 = (_mul32(seq_hash[:, 1:2], 2654435761) + ids + 1) & _MASK32
+    vals, ids = vals[..., :B], ids[..., :B]                       # (N, B, B)
+    cand_score = (sum_logprobs[..., None] + vals).masked_fill(~live[..., None], NEG_INF)
+    h1 = (_mul32(seq_hash[..., 0:1], 1000003) + ids + 1) & _MASK32
+    h2 = (_mul32(seq_hash[..., 1:2], 2654435761) + ids + 1) & _MASK32
 
-    flat_score = cand_score.reshape(-1)
-    flat_tok = ids.reshape(-1)
-    flat_parent = torch.div(torch.arange(B * B, device=dev), B, rounding_mode="floor")
-    flat_h1, flat_h2 = h1.reshape(-1), h2.reshape(-1)
+    flat_score = cand_score.reshape(N, B * B)
+    flat_tok = ids.reshape(N, B * B)
+    flat_parent = torch.div(torch.arange(B * B, device=dev), B,
+                            rounding_mode="floor").expand(N, B * B)
+    flat_h1, flat_h2 = h1.reshape(N, B * B), h2.reshape(N, B * B)
 
-    order = torch.argsort(-flat_score, stable=True)
-    s_score = flat_score[order]
-    s_h1, s_h2 = flat_h1[order], flat_h2[order]
+    order = torch.argsort(-flat_score, dim=-1, stable=True)
+    s_score = flat_score.gather(1, order)
+    s_h1, s_h2 = flat_h1.gather(1, order), flat_h2.gather(1, order)
     # consecutive-duplicate mask in sorted order (off at step 0)
-    same = (s_h1[1:] == s_h1[:-1]) & (s_h2[1:] == s_h2[:-1])
-    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), same])
+    same = (s_h1[:, 1:] == s_h1[:, :-1]) & (s_h2[:, 1:] == s_h2[:, :-1])
+    dup = torch.cat([torch.zeros((N, 1), dtype=torch.bool, device=dev), same], 1)
     dup = dup & (torch.as_tensor(step_i, device=dev) > 0)
     elig = ~dup & (s_score > NEG_INF)
-    rank = torch.cumsum(elig.long(), 0) - 1
-    total = torch.clamp(elig.long().sum(), min=1)
+    rank = torch.cumsum(elig.long(), 1) - 1
+    total = torch.clamp(elig.long().sum(1, keepdim=True), min=1)
 
     # the m-th live beam takes the m-th eligible candidate; surplus beams
     # wrap to the best one (full.py's cur_c = 0)
-    m = torch.where(live, torch.cumsum(live.long(), 0) - 1, 0) % total
-    hit = (rank[None, :] == m[:, None]) & elig[None, :]        # (B, B*B)
-    pick = order[hit.long().argmax(1)]
-    src = torch.where(live, flat_parent[pick], torch.arange(B, device=dev))
-    new_hash = torch.where(live[:, None],
-                           torch.stack([flat_h1[pick], flat_h2[pick]], 1), seq_hash)
-    return src, flat_tok[pick], flat_score[pick], new_hash
+    m = torch.where(live, torch.cumsum(live.long(), 1) - 1, 0) % total
+    hit = (rank[:, None, :] == m[:, :, None]) & elig[:, None, :]   # (N, B, B*B)
+    pick = order.gather(1, hit.long().argmax(2))
+    src = torch.where(live, flat_parent.gather(1, pick), torch.arange(B, device=dev))
+    new_hash = torch.where(live[..., None],
+                           torch.stack([flat_h1.gather(1, pick),
+                                        flat_h2.gather(1, pick)], -1), seq_hash)
+    return src, flat_tok.gather(1, pick), flat_score.gather(1, pick), new_hash
 
 
-def _beam_select(logprobs, completed, failed, sum_logprobs, seq_hash, step_i,
-                 beg: int):
-    """Single-group wrapper over `_beam_select_core` (the one-window path):
-    the live lanes are those neither completed nor failed."""
-    return _beam_select_core(logprobs, ~(completed | failed), sum_logprobs,
-                             seq_hash, step_i, beg)
+def _beam_select_grouped(logprobs, completed, failed, sum_logprobs, seq_hash,
+                         step_i, beg: int, n_groups: int, group: int):
+    """Grouped beam step of native window x beam batching (the JAX
+    package's `_beam_select_grouped`): rows are `n_groups` windows of
+    `group` lanes, window-major; selection runs inside each group, and the
+    parents come back GLOBAL (w * group + local), so the gathers of the
+    cache and the state stay flat on the row axis."""
+    def resh(a):
+        return a.reshape(n_groups, group, *a.shape[1:])
+
+    src, tok, score, new_hash = _beam_select_core(
+        resh(logprobs), resh(~(completed | failed)), resh(sum_logprobs),
+        resh(seq_hash), step_i, beg)
+    offs = (torch.arange(n_groups, device=logprobs.device) * group)[:, None]
+    return ((src + offs).reshape(-1), tok.reshape(-1), score.reshape(-1),
+            new_hash.reshape(-1, 2))
 
 
 # The host reads the "all lanes done" flag once every FLAG_EVERY steps.  A
@@ -292,96 +324,155 @@ def _planes(x):
     return tuple(x) if isinstance(x, M.XK8) else (x,)
 
 
+def _map_planes(fn, x):
+    """`fn` over every tensor of a cross-K/V operand, keeping its form."""
+    return M.XK8(*map(fn, x)) if isinstance(x, M.XK8) else fn(x)
+
+
+def prompt_pad_masks(prompt_bucket: int, n_cells: int, prompt_lens, dev):
+    """The left-pad layout of W natively batched prompts: (cell c's token
+    index c - shift_w in row w (W, bucket), the prompt pass's additive mask
+    (W, 1, bucket, C), the steps' additive mask (W, 1, 1, C)).  Cells below
+    shift_w = bucket - len_w are pad and stay hidden for the whole window."""
+    shift = prompt_bucket - torch.tensor(prompt_lens, device=dev)       # (W,)
+    cells = torch.arange(prompt_bucket, device=dev)[None, :] - shift[:, None]
+    c = torch.arange(n_cells, device=dev)
+    is_pad = c[None, :] < shift[:, None]                                # (W, C)
+    # a pad QUERY would see an all-masked row (softmax NaN in the cache):
+    # each pad query sees itself; its output is never read
+    diag = c[:prompt_bucket, None] == c[None, :]
+    mask_prompt = torch.where(is_pad[:, None, :] & ~diag[None], NEG_INF,
+                              0.0)[:, None]
+    return cells, mask_prompt, torch.where(is_pad, NEG_INF, 0.0)[:, None, None, :]
+
+
 class LoopState:
     """The window loop's carried tensors (the JAX package's LoopState) and
-    the window's inputs, each at one address for the state's life: the step
-    updates them in place, so a CUDA graph captured over them replays window
-    after window once `load` has put a window in."""
+    the inputs of its W windows, each at one address for the state's life:
+    the step updates them in place, so a CUDA graph captured over them
+    replays call after call once `load` has put the windows in.  Rows are W
+    windows of G lanes, window-major."""
 
-    def __init__(self, hp: WhisperHParams, B: int, n_max: int, cache_dtype,
-                 kv_itype: str, xk, xv, n_mask: int, V: int, dev):
+    def __init__(self, hp: WhisperHParams, W: int, G: int, n_max: int,
+                 n_cells: int, cache_dtype, kv_itype: str, xk, xv, n_mask: int,
+                 V: int, dev):
         def z(dtype, *shape):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         i64, f32, b8 = torch.long, torch.float32, torch.bool
-        self.cache = M.new_cache(hp, B, cache_dtype, itype=kv_itype, device=dev)
-        self.xk, self.xv = (type(x)(*map(torch.zeros_like, x)) if isinstance(x, M.XK8)
-                            else torch.zeros_like(x) for x in (xk, xv))
+        R = W * G
+        self.W, self.G = W, G
+        self.cache = M.new_cache(hp, R, cache_dtype, itype=kv_itype, device=dev,
+                                 n_cells=n_cells)
+        # one window's cross-K/V (L, H, Tc, d), or W windows' (L, W, H, Tc, d)
+        self.xk, self.xv = (_map_planes(lambda a: z(a.dtype, *a.shape), x)
+                            for x in (xk, xv))
         self.base_mask, self.initial_mask = z(f32, n_mask), z(f32, n_mask)
-        self.temperature = z(f32)
-        self.seek, self.seek_end, self.max_tokens, self.prompt_len = (
-            z(i64) for _ in range(4))
+        self.temperature = z(f32, R, 1)
+        self.seek, self.seek_end = z(i64, R), z(i64, R)
+        self.max_tokens = z(i64)
+        self.head = z(i64)                       # the cache cell step 0 writes
+        self.pos0 = z(i64, R)                    # the position of step 0's token
+        # the left-pad cells of a batched window's rows, masked
+        self.attn_mask = z(f32, R, 1, 1, n_cells) if W > 1 else None
         self.i = z(i64)                          # step index
         self.done = z(b8)                        # every lane completed or failed
-        self.logits_row = z(f32, B, V)           # raw logits feeding the next step
-        self.last_id, self.penult_id = z(i64, B), z(i64, B)
-        self.has_ts, self.failed, self.completed = z(b8, B), z(b8, B), z(b8, B)
-        self.seek_delta, self.result_len, self.n_tok = z(i64, B), z(i64, B), z(i64, B)
-        self.sum_logprobs = z(f32, B)
-        self.seq_hash = z(i64, B, 2)             # rolling uint32 hashes (beam)
-        self.tok_id, self.tok_tid = z(i64, B, n_max), z(i64, B, n_max)
+        self.logits_row = z(f32, R, V)           # raw logits feeding the next step
+        self.last_id, self.penult_id = z(i64, R), z(i64, R)
+        self.has_ts, self.failed, self.completed = z(b8, R), z(b8, R), z(b8, R)
+        self.seek_delta, self.result_len, self.n_tok = z(i64, R), z(i64, R), z(i64, R)
+        self.sum_logprobs = z(f32, R)
+        self.seq_hash = z(i64, R, 2)             # rolling uint32 hashes (beam)
+        self.tok_id, self.tok_tid = z(i64, R, n_max), z(i64, R, n_max)
         self.tok_p, self.tok_plog, self.tok_pt, self.tok_ptsum = (
-            z(f32, B, n_max) for _ in range(4))
-        self.gen = torch.Generator(device=dev)   # t>0 lanes' draws
+            z(f32, R, n_max) for _ in range(4))
+        # t>0 lanes' draws: one generator per window
+        self.gens = [torch.Generator(device=dev) for _ in range(W)]
 
     def buffers(self):
         """The per-column output buffers, in `_sample`'s order."""
         return (self.tok_id, self.tok_tid, self.tok_p, self.tok_plog,
                 self.tok_pt, self.tok_ptsum)
 
-    def load(self, cache1, last_row, xk, xv, base_mask, initial_mask,
-             temperature: float, seek: int, seek_end: int, max_tokens: int,
-             prompt_len: int, rng_seed: int) -> None:
-        """Put a window in: the prompt pass's single-lane cache tiled over
-        the lanes, its last logits row, the window's inputs; the carried
-        state back to its start."""
-        for dst, src in zip((*self.cache, *_planes(self.xk), *_planes(self.xv)),
-                            (*cache1, *_planes(xk), *_planes(xv))):
+    def load(self, cache_w, last_rows, xk, xv, base_mask, initial_mask,
+             temperatures, seeks, seek_ends, max_tokens: int, head: int, pos0,
+             rng_seeds, attn_mask=None) -> None:
+        """Put the W windows in: the prompt pass's cache rows and last logits
+        rows (one per window) repeated over each window's G lanes, the
+        windows' inputs (sequences of W host numbers for the per-window
+        ones), and the carried state back to its start."""
+        W, G = self.W, self.G
+        for dst, src in zip(self.cache, cache_w):
+            dst.unflatten(1, (W, G)).copy_(src.unsqueeze(2))
+        for dst, src in zip((*_planes(self.xk), *_planes(self.xv)),
+                            (*_planes(xk), *_planes(xv))):
             dst.copy_(src)
+        self.logits_row.unflatten(0, (W, G)).copy_(last_rows.unsqueeze(1))
+        if attn_mask is not None:
+            self.attn_mask.unflatten(0, (W, G)).copy_(attn_mask.unsqueeze(1))
         self.base_mask.copy_(base_mask)
         self.initial_mask.copy_(initial_mask)
-        self.logits_row.copy_(last_row)
-        for t, v in ((self.temperature, temperature), (self.seek, seek),
-                     (self.seek_end, seek_end), (self.max_tokens, max_tokens),
-                     (self.prompt_len, prompt_len), (self.last_id, -1),
-                     (self.penult_id, -1), (self.seek_delta, 100 * CHUNK_SIZE)):
+        for t, vals in ((self.temperature, temperatures), (self.seek, seeks),
+                        (self.seek_end, seek_ends), (self.pos0, pos0)):
+            t.view(W, G).copy_(torch.tensor(vals, dtype=t.dtype, device=t.device)[:, None])
+        for t, v in ((self.max_tokens, max_tokens), (self.head, head),
+                     (self.last_id, -1), (self.penult_id, -1),
+                     (self.seek_delta, 100 * CHUNK_SIZE)):
             t.fill_(v)
         for t in (self.i, self.done, self.has_ts, self.failed, self.completed,
                   self.result_len, self.n_tok, self.sum_logprobs, self.seq_hash,
                   *self.buffers()):
             t.zero_()
-        self.gen.manual_seed(int(rng_seed))
+        for g, seed in zip(self.gens, rng_seeds):
+            g.manual_seed(int(seed))
 
     def result(self, prompt_probs) -> WindowResult:
-        """The window's one read of its result buffers."""
-        return WindowResult(*(t.to("cpu", copy=True).numpy() for t in (
+        """The one read of the result buffers; with W > 1 windows every
+        per-lane field comes back as (W, G, ...) and prompt_probs as (W, V)."""
+        out = [t.to("cpu", copy=True).numpy() for t in (
             *self.buffers(), self.n_tok, self.result_len, self.seek_delta,
-            self.has_ts, self.failed, self.completed, self.sum_logprobs,
-            prompt_probs)))
+            self.has_ts, self.failed, self.completed, self.sum_logprobs)]
+        if self.W > 1:
+            out = [a.reshape(self.W, self.G, *a.shape[1:]) for a in out]
+        return WindowResult(*out, prompt_probs.to("cpu", copy=True).numpy())
 
 
 def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                         compute_dtype, no_timestamps: bool,
                         single_segment: bool, vocab_eot: int, vocab_beg: int,
-                        kv_itype: str = "f16", strategy: str = "greedy"):
+                        kv_itype: str = "f16", strategy: str = "greedy",
+                        n_windows: int = 1):
     """Build the whole-window decode function for one (lane count, prompt
-    bucket, timestamp mode, strategy): "greedy" (greedy or best-of
-    sampling lanes) or "beam" (beam search at t=0).
+    bucket, timestamp mode, strategy, window count): "greedy" (greedy or
+    best-of sampling lanes) or "beam" (beam search at t=0).
 
-    On a CUDA tensor the window's steps replay CUDA graphs, one per
-    attention-bucket segment and sampling branch, captured at first use
-    over the decoder's LoopState; on a CPU tensor the same step runs
-    eagerly.  `decode_window.eager` runs the eager loop on any device (a
-    reference for the graphs on the card).  Counters on the returned
-    function: `windows` (windows decoded), `readbacks` (host reads of the
-    done flag, and one read of the results per window), `steps` (steps run,
-    those past a window's end included), `graphs` (graphs captured) and
-    `capture_us` (time spent warming up and capturing them)."""
+    n_windows = W > 1 is the JAX package's native window batching
+    (`decode_windows_native`): W windows x n_beams lanes on one row axis,
+    window-major.  Its per-window arguments come stacked, as the JAX
+    package's: prompts (W, bucket) right-padded, xk/xv (W, L, H, Tc, d) (or
+    XK8 planes stacked so), and sequences of W host numbers for prompt_len,
+    temperature, seek, seek_end and rng_seed; base/initial masks and
+    max_tokens are shared.  Prompts are LEFT-padded to the bucket, so every
+    row's last prompt cell is bucket - 1 and step i writes cell bucket + i
+    for all rows; each row has its own positions and an additive mask over
+    its pad cells.  Result fields are (W, n_beams, ...), prompt_probs (W, V).
+
+    On a CUDA tensor the steps replay CUDA graphs, one per attention-bucket
+    segment and sampling branch, captured at first use over the decoder's
+    LoopState; on a CPU tensor the same step runs eagerly.
+    `decode_window.eager` runs the eager loop on any device (a reference
+    for the graphs on the card).  Every call holds graphs.DEVICE_LOCK.
+    Counters on the returned function: `windows` (windows decoded),
+    `readbacks` (host reads of the done flag, and one read of the results
+    per call), `steps` (steps run, those past the windows' end included),
+    `graphs` (graphs captured) and `capture_us` (time spent warming up and
+    capturing them)."""
     if strategy not in ("greedy", "beam"):
         raise ValueError(f"unknown window strategy {strategy!r}")
     n_max = hp.n_text_ctx // 2 - 4
     eot, beg = vocab_eot, vocab_beg
-    B = n_beams
+    W, G = n_windows, n_beams
+    native = W > 1
     cache_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
     prompt_ctx = next(a for a in M.attn_ctx_buckets(hp.n_text_ctx)
                       if a >= prompt_bucket)
@@ -395,6 +486,15 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
         entry = a - prompt_bucket
     if not seg_sizes:
         seg_sizes = [hp.n_text_ctx]
+    n_cells = hp.n_text_ctx
+    if native:
+        # step i writes cell prompt_bucket + i, so the batch needs
+        # prompt_bucket + n_max cells, which can pass n_text_ctx (JAX:
+        # n_cells_native, seg_sizes_native)
+        n_cells = max(hp.n_text_ctx, prompt_bucket + n_max)
+        seg_sizes = [a for a in seg_sizes if a < n_cells]
+        if not seg_sizes or seg_sizes[-1] - prompt_bucket < n_max:
+            seg_sizes.append(n_cells)
 
     def step_ctx(i: int) -> int:
         for a in seg_sizes[:-1]:
@@ -404,7 +504,8 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
 
     def step(st: LoopState, params, attn_ctx: int, temperature: float) -> None:
         """One token step over the state, in place (the JAX loop's body).
-        `temperature` (host) picks the sampling branch only."""
+        `temperature` (host, the largest of the windows') picks the
+        sampling branch only."""
         i = st.i
         live = ~(st.completed | st.failed)
         logits, logprobs, probs = _apply_filters(
@@ -412,13 +513,13 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
             st.seek_delta, st.base_mask, st.initial_mask, st.temperature,
             st.max_tokens, eot, beg, no_timestamps, single_segment)
         if strategy == "beam":
-            # candidates, dedup, selection, then every per-lane state
-            # follows its parent (the completed/failed flags stay per
-            # slot, as in the JAX package); the cache is gathered into a
-            # temporary and copied back to its one address
-            src, tok, score, seq_hash = _beam_select(
+            # candidates, dedup, selection inside each window's group, then
+            # every per-lane state follows its parent (the completed/failed
+            # flags stay per slot, as in the JAX package); the cache is
+            # gathered into a temporary and copied back to its one address
+            src, tok, score, seq_hash = _beam_select_grouped(
                 logprobs, st.completed, st.failed, st.sum_logprobs,
-                st.seq_hash, i, beg)
+                st.seq_hash, i, beg, W, G)
             for a in st.cache:
                 a.copy_(a.index_select(1, src))
             probs_g, logprobs_g = probs[src], logprobs[src]
@@ -431,8 +532,9 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
             st.seq_hash.copy_(seq_hash)
             st.sum_logprobs.copy_(torch.where(live, score, st.sum_logprobs))
         else:
-            tok, p, plog, tid, pt, ptsum = _sample(logprobs, probs, temperature,
-                                                   st.gen, beg)
+            tok, p, plog, tid, pt, ptsum = _sample(
+                logprobs, probs, temperature, st.gens, beg,
+                row_temp=st.temperature[:, 0])
             st.sum_logprobs.copy_(torch.where(live, st.sum_logprobs + plog,
                                               st.sum_logprobs))
 
@@ -442,7 +544,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
             buf.copy_(torch.where(col, val[:, None].to(buf.dtype), buf))
         st.n_tok.copy_(torch.where(live, i + 1, st.n_tok))
 
-        # ---- state rules (src/whisper.cpp:7360-7443) ----
+        # ---- state rules (src/whisper.cpp:7360-7443), per-row seeks ----
         is_ts = live & (tok > beg)
         sd_new = 2 * (tok - beg)
         fail_seek = is_ts & st.has_ts & (st.seek_delta > sd_new) & (st.result_len < i)
@@ -482,14 +584,15 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
             dst.copy_(val)
         st.done.copy_((completed | failed).all())
 
-        # ---- next-token decode (batched over lanes) ----
+        # ---- next-token decode (batched over rows): one write head, each
+        # row at its own position ----
         # every step decodes, as the JAX body does: a step after the last
         # lane has finished only writes what nothing reads
-        n_past = st.prompt_len + i
-        step_pos = torch.clamp(n_past, max=hp.n_text_ctx - 1).expand(B, 1)
+        step_pos = torch.clamp(st.pos0 + i, max=hp.n_text_ctx - 1)[:, None]
         logits_next, _ = M.decode_step(
-            params, tok[:, None], step_pos, n_past, st.cache, st.xk, st.xv, hp,
-            dtype=compute_dtype, attn_ctx=attn_ctx)
+            params, tok[:, None], step_pos, st.head + i, st.cache, st.xk, st.xv,
+            hp, dtype=compute_dtype, attn_mask=st.attn_mask, attn_ctx=attn_ctx,
+            xkv_group=G if native else 1)
         st.logits_row.copy_(logits_next[:, 0])
         st.i.add_(1)
 
@@ -502,16 +605,14 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                tuple((tuple(t.shape), t.dtype) for t in (*_planes(xk), *_planes(xv))))
         if held["sig"] != sig:
             held.update(sig=sig, graphs={}, pool=None, st=LoopState(
-                hp, B, n_max, cache_dtype, kv_itype, xk, xv, base_mask.shape[0],
-                V, dev))
+                hp, W, G, n_max, n_cells, cache_dtype, kv_itype, xk, xv,
+                base_mask.shape[0], V, dev))
         return held["st"]
 
     def segment_graphs(st: LoopState, params, temperature: float):
-        """{attn_ctx: graph} for the window's sampling branch, capturing the
-        ones not captured yet (all segments at once, before the window is
+        """{attn_ctx: graph} for the call's sampling branch, capturing the
+        ones not captured yet (all segments at once, before the windows are
         loaded: the warm-up step runs on the state)."""
-        from . import graphs as G
-
         sampling = temperature >= 1e-6 and strategy == "greedy"
         graphs = held["graphs"]
         missing = [a for a in seg_sizes if (a, sampling) not in graphs]
@@ -520,54 +621,86 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
             if held["pool"] is None:
                 held["pool"] = torch.cuda.graph_pool_handle()
             for a in missing:
-                graphs[(a, sampling)] = G.CountedGraph(
+                graphs[(a, sampling)] = CG.CountedGraph(
                     lambda a=a: step(st, params, a, temperature), held["pool"],
-                    generator=st.gen if sampling else None)
+                    generators=st.gens if sampling else ())
             torch.cuda.synchronize(st.i.device)
             decode_window.capture_us += int((time.perf_counter() - t0) * 1e6)
             decode_window.graphs += len(missing)
         return {a: graphs[(a, sampling)] for a in seg_sizes}
 
-    def run(params, prompt, prompt_len: int, xk, xv, base_mask, initial_mask,
-            temperature: float, seek: int, seek_end: int, max_tokens: int,
-            rng_seed: int, on_graphs: bool) -> WindowResult:
-        dev = prompt.device
-        # ---- prompt decode (single lane, eager: one per window) ----
-        cache1 = M.new_cache(hp, 1, cache_dtype, itype=kv_itype, device=dev)
-        pos = torch.clamp(torch.arange(prompt_bucket, device=dev), 0,
-                          hp.n_text_ctx - 1)[None, :]
-        logits_all, cache1 = M.decode_step(
-            params, prompt[None, :], pos, 0, cache1, xk, xv, hp,
-            dtype=compute_dtype, attn_ctx=prompt_ctx)
-        last_row = logits_all[:, prompt_len - 1]                   # (1, V)
-        prompt_probs = torch.softmax(last_row[0].float(), dim=-1)
+    def prompt_pass(params, prompts, prompt_lens, xk, xv):
+        """The prompt decode, one row per window (the lanes of a window
+        share it): (its cache, the last prompt row's logits (W, V), their
+        softmax, the rows' additive pad mask (W, 1, 1, C) or None)."""
+        dev = prompts.device
+        if not native:
+            cache1 = M.new_cache(hp, 1, cache_dtype, itype=kv_itype, device=dev)
+            pos = torch.clamp(torch.arange(prompt_bucket, device=dev), 0,
+                              hp.n_text_ctx - 1)[None, :]
+            logits_all, cache1 = M.decode_step(
+                params, prompts[None, :], pos, 0, cache1, xk, xv, hp,
+                dtype=compute_dtype, attn_ctx=prompt_ctx)
+            last = logits_all[:, prompt_lens[0] - 1]                    # (1, V)
+            return cache1, last, torch.softmax(last[0].float(), dim=-1), None
+        # left-pad: cell c of row w holds token c - shift_w; cells below
+        # shift_w are pad, never overwritten (steps write bucket + i), so
+        # one additive mask hides them for the whole window
+        cells, mask_prompt, pad = prompt_pad_masks(prompt_bucket, n_cells,
+                                                   prompt_lens, dev)
+        prompt_lp = prompts.gather(1, torch.clamp(cells, 0, prompt_bucket - 1))
+        pos = torch.clamp(cells, 0, hp.n_text_ctx - 1)
+        cache_w = M.new_cache(hp, W, cache_dtype, itype=kv_itype, device=dev,
+                              n_cells=n_cells)
+        logits_all, cache_w = M.decode_step(
+            params, prompt_lp, pos, 0, cache_w, xk, xv, hp, dtype=compute_dtype,
+            attn_mask=mask_prompt, attn_ctx=prompt_ctx)
+        last = logits_all[:, prompt_bucket - 1]                         # (W, V)
+        return cache_w, last, torch.softmax(last.float(), dim=-1), pad
 
-        st = state_for(params, xk, xv, base_mask, last_row.shape[-1], dev)
-        graphs = segment_graphs(st, params, temperature) if on_graphs else None
-        st.load(cache1, last_row, xk, xv, base_mask, initial_mask, temperature,
-                seek, seek_end, max_tokens, prompt_len, rng_seed)
-        # the host counts the steps, so it picks each step's segment and
-        # stops at n_max itself; it reads the done flag every FLAG_EVERY
-        # steps (JAX: the while_loop's cond, on the device)
-        i = 0
-        while i < n_max:
-            if on_graphs:
-                graphs[step_ctx(i)].replay()
-            else:
-                step(st, params, step_ctx(i), temperature)
-            i += 1
-            if i % FLAG_EVERY == 0 and i < n_max:
-                decode_window.readbacks += 1
-                if bool(st.done):
-                    break
-        decode_window.windows += 1
-        decode_window.steps += i
-        decode_window.readbacks += 1
-        return st.result(prompt_probs)
+    def run(params, prompt, prompt_len, xk, xv, base_mask, initial_mask,
+            temperature, seek, seek_end, max_tokens: int, rng_seed,
+            on_graphs: bool) -> WindowResult:
+        if native:
+            # stacked (W, L, ...) planes as the decoder's (L, W, ...)
+            xk, xv = (_map_planes(lambda a: a.transpose(0, 1), x) for x in (xk, xv))
+            lens, temps, seeks, ends, seeds = (list(a) for a in (
+                prompt_len, temperature, seek, seek_end, rng_seed))
+            head = prompt_bucket
+        else:
+            lens, temps, seeks, ends, seeds = ([a] for a in (
+                prompt_len, temperature, seek, seek_end, rng_seed))
+            head = prompt_len
+        with CG.DEVICE_LOCK:
+            cache_w, last, prompt_probs, pad = prompt_pass(params, prompt, lens,
+                                                           xk, xv)
+            st = state_for(params, xk, xv, base_mask, last.shape[-1], prompt.device)
+            branch = max(temps)
+            graphs = segment_graphs(st, params, branch) if on_graphs else None
+            st.load(cache_w, last, xk, xv, base_mask, initial_mask, temps, seeks,
+                    ends, max_tokens, head, lens, seeds, pad)
+            # the host counts the steps, so it picks each step's segment and
+            # stops at n_max itself; it reads the done flag every FLAG_EVERY
+            # steps (JAX: the while_loop's cond, on the device)
+            i = 0
+            while i < n_max:
+                if on_graphs:
+                    graphs[step_ctx(i)].replay()
+                else:
+                    step(st, params, step_ctx(i), branch)
+                i += 1
+                if i % FLAG_EVERY == 0 and i < n_max:
+                    decode_window.readbacks += 1
+                    if bool(st.done):
+                        break
+            decode_window.windows += W
+            decode_window.steps += i
+            decode_window.readbacks += 1
+            return st.result(prompt_probs)
 
-    def decode_window(params, prompt, prompt_len: int, xk, xv, base_mask,
-                      initial_mask, temperature: float, seek: int,
-                      seek_end: int, max_tokens: int, rng_seed: int) -> WindowResult:
+    def decode_window(params, prompt, prompt_len, xk, xv, base_mask,
+                      initial_mask, temperature, seek, seek_end,
+                      max_tokens: int, rng_seed) -> WindowResult:
         return run(params, prompt, prompt_len, xk, xv, base_mask, initial_mask,
                    temperature, seek, seek_end, max_tokens, rng_seed,
                    on_graphs=prompt.device.type == "cuda")

@@ -26,6 +26,7 @@ import torch
 
 from ..models.whisper.hparams import CHUNK_SIZE
 from ..runtime.context import WhisperContext
+from .graphs import DEVICE_LOCK
 from . import logits as LF
 from .languages import lang_id as lang_to_id, lang_str, LANGUAGES
 from .params import (HISTORY_CONDITIONING_TEMP_CUTOFF, SamplingStrategy,
@@ -94,8 +95,9 @@ def _tile_cache(cache, n_beam: int):
     it, the q8 cache's scales included."""
     if cache.kv.shape[1] == n_beam:
         return cache
-    return type(cache)(*(a[:, :1].repeat(1, n_beam, *([1] * (a.ndim - 2)))
-                         for a in cache))
+    with DEVICE_LOCK:
+        return type(cache)(*(a[:, :1].repeat(1, n_beam, *([1] * (a.ndim - 2)))
+                             for a in cache))
 
 
 def _refuse_unported(params: TranscribeParams) -> None:
@@ -458,7 +460,9 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                         d.sequence = cur.sequence.copy()
                         src_rows[j] = cur.decoder_idx
                     if cache is not None and src_rows != list(range(n_decoders_cur)):
-                        cache = cache.reorder(torch.tensor(src_rows, device=ctx.device))
+                        with DEVICE_LOCK:
+                            cache = cache.reorder(torch.tensor(src_rows,
+                                                               device=ctx.device))
 
                 # update decoder state
                 for j in range(n_decoders_cur):

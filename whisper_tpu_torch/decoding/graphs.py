@@ -1,4 +1,5 @@
-"""CUDA graphs whose kernel launches stay counted.
+"""CUDA graphs whose kernel launches stay counted, and the lock that keeps
+the port's device work in one ordered stream.
 
 Each kernel wrapper of the port adds one to its `launches` where it launches
 its kernel (ops/qmm.py, ops/decode_attn.py, ops/enc_attn.py,
@@ -7,9 +8,32 @@ nothing, and a replay launches every captured kernel without running them.
 `CountedGraph` records how far each count moved during its capture, takes
 that back, and adds it on every replay, so the counts keep saying what the
 card ran.
+
+DEVICE_LOCK: the server runs each request in a thread of its own, and the
+port's device work assumes one thread at a time in three places.  The
+decode matmul's arrival counters are one buffer per device, all 0 between
+launches only while its launches run in order (ops/qmm.py); a capture in
+PyTorch's default "global" mode fails if another thread reads the card or
+grows the allocator meanwhile; and a capture's count deltas would take in
+another thread's launches.  So every piece of the port's device work holds
+this one process-wide lock (runtime/context.py, the window decoders,
+decoding/full.py's host loop): its launches all go to the current stream
+in order, a capture (and its warm-up on a side stream, fenced on both
+sides) sees no other thread's work, and the counts move under the lock.
+The host work of a request (audio, mel, logit filters, segments) runs
+outside it, in parallel.
+
+A fourth: CUDA refuses to destroy a graph while another one is being
+captured, and the capture fails with it.  A window decoder sits in a
+reference cycle, so Python's cycle collector can drop it, and its graphs,
+at any allocation in any thread, a capture's included.  So a CountedGraph
+that goes away leaves its graph in _RETIRED, and the next capture destroys
+the retired graphs, holding the lock, before it begins.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -18,32 +42,42 @@ from ..ops import attention, decode_attn, enc_attn, qmm
 COUNTED = (qmm.qmmt_fused, qmm.qmmt, qmm.qmm, decode_attn.self_attend_q8,
            enc_attn.self_attention_qkv, attention.flash_self_attention)
 
+DEVICE_LOCK = threading.RLock()
+_RETIRED = []     # graphs of dropped CountedGraphs, destroyed by the next capture
+
 
 class CountedGraph:
     """`fn` run once eagerly on a side stream (so that lazy set-up, such as
     the decode matmul's arrival counters, happens outside the capture), then
-    captured into a CUDA graph in the memory pool `pool`.  `generator`, when
-    given, is registered with the graph, so each replay draws the numbers
-    the next eager call would draw."""
+    captured into a CUDA graph in the memory pool `pool`, all under
+    DEVICE_LOCK.  `generators`, when given, are registered with the graph,
+    so each replay draws the numbers the next eager call would draw."""
 
-    def __init__(self, fn, pool, generator=None):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        before = [f.launches for f in COUNTED]
-        self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-        with torch.cuda.graph(self.graph, pool=pool):
-            fn()
-        self.deltas = [(f, f.launches - n) for f, n in zip(COUNTED, before)
-                       if f.launches != n]
-        for f, d in self.deltas:
-            f.launches -= d
+    def __init__(self, fn, pool, generators=()):
+        with DEVICE_LOCK:
+            _RETIRED.clear()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            before = [f.launches for f in COUNTED]
+            self.graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                self.graph.register_generator_state(g)
+            with torch.cuda.graph(self.graph, pool=pool):
+                fn()
+            self.deltas = [(f, f.launches - n) for f, n in zip(COUNTED, before)
+                           if f.launches != n]
+            for f, d in self.deltas:
+                f.launches -= d
 
     def replay(self) -> None:
-        self.graph.replay()
-        for f, d in self.deltas:
-            f.launches += d
+        with DEVICE_LOCK:
+            self.graph.replay()
+            for f, d in self.deltas:
+                f.launches += d
+
+    def __del__(self):
+        if hasattr(self, "graph"):
+            _RETIRED.append(self.graph)

@@ -276,9 +276,20 @@ def compute_cross_kv(params: Dict[str, Any], enc_out: torch.Tensor,
     return xk, xv
 
 
-def cross_attend(qh: torch.Tensor, ck, cv, dtype) -> torch.Tensor:
-    """Cross-attention of qh (..., H, Tq, d) against dense (H, Tc, d) or
-    XK8 planes; every encoder position is visible."""
+def cross_attend(qh: torch.Tensor, ck, cv, dtype, group: int = 1) -> torch.Tensor:
+    """Cross-attention of qh (..., H, Tq, d) against dense (..., H, Tc, d)
+    or XK8 planes; every encoder position is visible.
+
+    group > 1: qh is (W * group, H, Tq, d), rows window-major, and ck/cv
+    hold one plane per window, (W, H, Tc, d).  A window's lanes share its
+    planes: their queries fold into the query axis, (W, H, group * Tq, d),
+    so the planes are read once per window and never copied per lane (the
+    JAX package broadcasts them over a lane axis, model.py xkv_group)."""
+    if group > 1:
+        R, H, T, d = qh.shape
+        q = qh.reshape(R // group, group, H, T, d).transpose(1, 2)
+        out = cross_attend(q.reshape(R // group, H, group * T, d), ck, cv, dtype)
+        return out.reshape(R // group, H, group, T, d).transpose(1, 2).reshape(R, H, T, d)
     scale = 1.0 / math.sqrt(qh.shape[-1])
     if isinstance(ck, XK8):
         scores = matmul_f32(qh, ck.codes.transpose(-1, -2), dtype)
@@ -316,10 +327,12 @@ class KVCache8(NamedTuple):
 
 
 def new_cache(hp: WhisperHParams, n_beam: int, dtype=torch.float32,
-              itype: str = "f16", device="cpu"):
-    """kv_self allocation; itype 'f16' (dense, `dtype` storage) or 'q8'."""
+              itype: str = "f16", device="cpu", n_cells: Optional[int] = None):
+    """kv_self allocation; itype 'f16' (dense, `dtype` storage) or 'q8'.
+    `n_cells` (default n_text_ctx): the natively batched window decoder
+    allocates prompt_bucket + n_max cells (decoding/device_loop.py)."""
     h = hp.n_text_head
-    c = hp.n_text_ctx
+    c = n_cells or hp.n_text_ctx
     shape = (hp.n_text_layer, n_beam, h, 2, c, hp.n_text_state // h)
     if itype == "q8":
         return KVCache8(torch.zeros(shape, dtype=torch.int8, device=device),
@@ -337,10 +350,20 @@ def attn_ctx_buckets(n_ctx: int, n_buckets: int = 4) -> Tuple[int, ...]:
                          for k in range(n_buckets)}))
 
 
+def decode_mask(kv_head, n_tok: int, A: int, device, attn_mask=None):
+    """decode_step's additive self-attention mask over the first A cells,
+    (1, 1, n_tok, A), or (B, 1, n_tok, A) with a per-row `attn_mask`:
+    causal from the write head `kv_head`, plus `attn_mask`'s first A cells."""
+    j = torch.arange(A, device=device)[None, None, :]
+    i = torch.arange(n_tok, device=device)[None, :, None]
+    mask = torch.where(j < kv_head + i + 1, 0.0, -math.inf).float()[:, None]
+    return mask if attn_mask is None else mask + attn_mask[..., :A]
+
+
 def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
                 positions: torch.Tensor, kv_head: int, cache, xk, xv,
                 hp: WhisperHParams, dtype=torch.bfloat16, attn_mask=None,
-                attn_ctx: Optional[int] = None):
+                attn_ctx: Optional[int] = None, xkv_group: int = 1):
     """One batched decoder forward over all lanes (whisper_build_graph_decoder,
     src/whisper.cpp:2464-2842).
 
@@ -348,9 +371,15 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     a host int or a 0-d int64 tensor on the device (the window loop's
     captured step, as the JAX package's traced kv_head); both give the same
     result.  Only the first `attn_ctx` cache cells are read; the caller
-    promises kv_head + n_tok <= attn_ctx.  attn_mask: optional extra
-    additive (B, 1, 1, C) mask.  Returns (logits (n_beam, n_tok, n_vocab)
-    f32, the cache updated in place)."""
+    promises kv_head + n_tok <= attn_ctx.  The cell count C comes from the
+    cache (the natively batched window decoder allocates more than
+    n_text_ctx).  attn_mask: optional extra additive per-row mask, (B, 1,
+    n_tok, C) or (B, 1, 1, C): the left-pad cells of a natively batched
+    window (decoding/device_loop.py); it reaches K3 through its mask.
+    xkv_group > 1: rows are windows of xkv_group lanes, window-major, and
+    xk/xv hold one cross-K/V per window, (L, W, H, Tc, d), which the lanes
+    share (`cross_attend`).  Returns (logits (n_beam, n_tok, n_vocab) f32,
+    the cache updated in place)."""
     dec = params["dec"]
     n_beam, n_tok = tokens.shape
     n_head = hp.n_text_head
@@ -366,11 +395,7 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     x = (emb + dec["pos_embd"][positions]).float()
 
     A = n_ctx if attn_ctx is None else min(attn_ctx, n_ctx)
-    j = torch.arange(A, device=device)[None, None, :]
-    i = torch.arange(n_tok, device=device)[None, :, None]
-    mask = torch.where(j < kv_head + i + 1, 0.0, -math.inf).float()[:, None]  # (1,1,T,A)
-    if attn_mask is not None:
-        mask = mask + attn_mask[..., :A]
+    mask = decode_mask(kv_head, n_tok, A, device, attn_mask)
     is_q8 = isinstance(cache, KVCache8)
     # q8 cache: the kernel K3, unless WTPU_DECODE_ATTN=xla (which -nfa sets)
     # asks for the dequantize-and-attend graph, as in the JAX package
@@ -423,7 +448,7 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
         q = _mm_fused(x, blk["xq_w"], dtype,
                       ln=(blk["xattn_ln_w"], blk["xattn_ln_b"]),
                       bias=blk["xq_b"], eps=eps)
-        out = cross_attend(_split_heads(q, n_head), cxk, cxv, dtype)
+        out = cross_attend(_split_heads(q, n_head), cxk, cxv, dtype, group=xkv_group)
         x = _mm_fused(_merge_heads(out), blk["xo_w"], dtype, bias=blk["xo_b"], res=x)
         h = _mm_fused(x, blk["mlp0_w"], dtype,
                       ln=(blk["mlp_ln_w"], blk["mlp_ln_b"]),

@@ -95,17 +95,23 @@ def qmmt_fused_plain(x, codes_t, scales_t, mins_t=None, ln_w=None, ln_b=None,
                      bias=None, residual=None, act: Optional[str] = None,
                      eps: float = 1e-5, dtype=torch.bfloat16) -> torch.Tensor:
     """The plain PyTorch version of `qmmt_fused`, with the TPU kernel's
-    rounding points: layer norm in f32, rows rounded to `dtype`, one f32 dot
-    per qk-block scaled after the dot, affine sum(x_blk) * min, then bias,
-    tanh-GELU and residual in f32."""
+    rounding points but for the layer norm's statistics: mean and variance
+    from f64 sums of x and x^2, rounded to f32, as csrc/qmmt.cu computes
+    them (so both round the normalised rows to `dtype` alike), the
+    normalisation in f32; rows rounded to `dtype`, one f32 dot per qk-block
+    scaled after the dot, affine sum(x_blk) * min, then bias, tanh-GELU and
+    residual in f32."""
     T, K = x.shape
     nb, R = scales_t.shape
     qk = K // nb
     h = x.float()
     if ln_w is not None:
-        mean = h.mean(-1, keepdim=True)
-        var = (h - mean).square().mean(-1, keepdim=True)
-        h = (h - mean) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()
+        h64 = h.double()
+        mean = h64.sum(-1, keepdim=True) / K
+        var = h64.square().sum(-1, keepdim=True) / K - mean * mean
+        eps32 = float(torch.tensor(eps, dtype=torch.float32))    # the kernel's f32 eps
+        rstd = (1.0 / torch.sqrt(var + eps32)).float()
+        h = (h - mean.float()) * rstd * ln_w.float() + ln_b.float()
     xb = h.to(dtype).float().reshape(T, nb, qk).transpose(0, 1)   # (nb, T, qk)
     part = torch.bmm(xb, codes_t.reshape(nb, qk, R).float())      # (nb, T, R)
     y = (part * scales_t.float()[:, None, :]).sum(0)

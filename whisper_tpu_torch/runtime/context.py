@@ -5,6 +5,10 @@ Port of whisper_tpu/runtime/context.py.  The context runs on the CUDA card
 unless the caller passes device="cpu"; with no card it raises instead of
 carrying on on the CPU.  The compute type is bf16 on the card (as on the
 TPU) and f32 on the CPU (as the JAX package off the TPU).
+
+Every device section holds decoding/graphs.py's DEVICE_LOCK, so contexts
+cloned for concurrent requests (`clone_state`, runtime/batching.py) can
+run in threads of their own.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from ..audio.mel import LogMel
 from ..decoding import device_loop as DL
+from ..decoding.graphs import DEVICE_LOCK
 from ..decoding.logits import LogitFilterTables
 from ..models.whisper import model as M
 from ..models.whisper.convert import params_from_numpy
@@ -96,9 +101,6 @@ class WhisperContext:
         self.cache_dtype = torch.float32
         self.kv_itype = kv_itype
         self.cross_itype = cross_itype
-        self.params = (None if model.is_empty
-                       else params_from_numpy(model.params, self.device))
-
         # packed path for quantized files: the decoder's hot matmuls and the
         # logits head stay block-quantized on the device as TRANSPOSED,
         # PER-LAYER planes for the streaming kernel (ops/qmm.py); the dense
@@ -107,10 +109,15 @@ class WhisperContext:
         if use_packed_weights is None:
             use_packed_weights = on_card
         self.use_packed_weights = bool(use_packed_weights and model.qparams)
-        if self.use_packed_weights:
-            self._install_packed(build_qweight_overlay(model.qparams, self.hp))
-        if self.params is not None and self.compute_dtype != torch.float32:
-            self.params = _cast_matmul_weights(self.params, self.compute_dtype)
+        overlay = (build_qweight_overlay(model.qparams, self.hp)
+                   if self.use_packed_weights else None)
+        with DEVICE_LOCK:
+            self.params = (None if model.is_empty
+                           else params_from_numpy(model.params, self.device))
+            if overlay is not None:
+                self._install_packed(overlay)
+            if self.params is not None and self.compute_dtype != torch.float32:
+                self.params = _cast_matmul_weights(self.params, self.compute_dtype)
 
         self.mel_fn = LogMel(model.filters.data)
         self.timings = ContextTimings()
@@ -122,8 +129,8 @@ class WhisperContext:
         self.xk = None
         self.xv = None
         self._window_fns: Dict[Tuple, object] = {}
-        # lockstep window batcher of the JAX package (runtime/batching.py):
-        # not ported; a context with one attached refuses to decode
+        # a WindowBatcher (runtime/batching.py) that window decodes join;
+        # None: each runs at once
         self.batcher = None
 
     def enable_dtw(self, *args, **kwargs) -> None:
@@ -192,12 +199,13 @@ class WhisperContext:
         i1 = min(seek + 2 * n_ctx, self.n_len)
         if i1 > seek:
             window[:, : i1 - seek] = self.mel[:, seek:i1]
-        enc = M.encode(self.params, torch.from_numpy(window).to(self.device),
-                       hp, dtype=self.compute_dtype)
-        self.xk, self.xv = M.compute_cross_kv(
-            self.params, enc, hp, dtype=self.compute_dtype,
-            itype=self.cross_itype)
-        self._sync()
+        with DEVICE_LOCK:
+            enc = M.encode(self.params, torch.from_numpy(window).to(self.device),
+                           hp, dtype=self.compute_dtype)
+            self.xk, self.xv = M.compute_cross_kv(
+                self.params, enc, hp, dtype=self.compute_dtype,
+                itype=self.cross_itype)
+            self._sync()
         self.timings.t_encode_us += int((time.perf_counter() - t0) * 1e6)
         self.timings.n_encode += 1
         # max_initial_ts precision derives from the MODEL's full audio ctx
@@ -205,8 +213,9 @@ class WhisperContext:
         self.filter_tables = LogitFilterTables(self.vocab, hp.n_audio_ctx)
 
     def new_cache(self, n_beam: int, dtype=None):
-        return M.new_cache(self.hp, n_beam, dtype or self.cache_dtype,
-                           itype=self.kv_itype, device=self.device)
+        with DEVICE_LOCK:
+            return M.new_cache(self.hp, n_beam, dtype or self.cache_dtype,
+                               itype=self.kv_itype, device=self.device)
 
     def decode_window_device(self, prompt, n_beams: int, temperature: float,
                              seek: int, seek_end: int, params,
@@ -214,36 +223,68 @@ class WhisperContext:
                              strategy: str = "greedy") -> DL.WindowResult:
         """Decode a whole window with the token-loop state on the device
         (decoding/device_loop.py), with the window strategy "greedy" or
-        "beam"; returns a WindowResult of numpy arrays."""
-        if self.batcher is not None:
-            raise NotImplementedError(
-                "the window batcher is not ported to whisper_tpu_torch")
+        "beam"; returns a WindowResult of numpy arrays.
+
+        With a WindowBatcher attached (runtime/batching.py) the request
+        joins the current lockstep batch instead of running at once."""
         bt = _bucket(len(prompt))
-        key = (n_beams, bt, no_timestamps, params.single_segment, strategy)
-        fn = self._window_fns.get(key)
-        if fn is None:
-            fn = self._window_fns[key] = DL.make_window_decoder(
-                self.hp, n_beams, bt, self.compute_dtype, no_timestamps,
-                params.single_segment, self.vocab.token_eot,
-                self.vocab.token_beg, kv_itype=self.kv_itype, strategy=strategy)
+        # key[:5] picks the decoder; the digest keeps the batcher from
+        # coalescing requests whose arguments differ where _run_group takes
+        # them from the first request (suppression masks, max_tokens) or
+        # cannot stack (cross-K/V shapes under -ac): without it concurrent
+        # server users would decode with each other's masks
+        digest = (params.suppress_blank, params.suppress_nst,
+                  params.suppress_regex, params.tdrz_enable,
+                  params.max_initial_ts, params.max_tokens,
+                  tuple(DL._planes(self.xk)[0].shape))
+        key = (n_beams, bt, no_timestamps, params.single_segment, strategy,
+               digest)
         base_mask, initial_mask = DL.build_masks(self.filter_tables, params)
         prompt_padded = np.zeros(bt, np.int64)
         prompt_padded[: len(prompt)] = prompt
         dev = self.device
-        capture_us, n_graphs = fn.capture_us, fn.graphs
+        with DEVICE_LOCK:
+            args = (torch.from_numpy(prompt_padded).to(dev), len(prompt),
+                    self.xk, self.xv, torch.from_numpy(base_mask).to(dev),
+                    torch.from_numpy(initial_mask).to(dev), float(temperature),
+                    int(seek), int(seek_end), int(params.max_tokens), rng_seed)
         t0 = time.perf_counter()
-        res = fn(self.params, torch.from_numpy(prompt_padded).to(dev),
-                 len(prompt), self.xk, self.xv,
-                 torch.from_numpy(base_mask).to(dev),
-                 torch.from_numpy(initial_mask).to(dev), float(temperature),
-                 int(seek), int(seek_end), int(params.max_tokens), rng_seed)
-        capture_us = fn.capture_us - capture_us
-        self.timings.t_decode_us += int((time.perf_counter() - t0) * 1e6) - capture_us
+        if self.batcher is not None:
+            res, (n_graphs, capture_us) = self.batcher.submit(key, args)
+        else:
+            res, (n_graphs, capture_us) = self._decode_window_exec(key, *args)
+        dt = int((time.perf_counter() - t0) * 1e6)
+        # the graphs captured for this call count apart from decode time (a
+        # batched group's, once: on its first request)
+        self.timings.t_decode_us += dt - capture_us
         self.timings.t_capture_us += capture_us
-        self.timings.n_capture += fn.graphs - n_graphs
+        self.timings.n_capture += n_graphs
         self.timings.n_decode += int(res.n_tok.max()) if res.n_tok.size else 0
         self.timings.n_prompt += len(prompt)
         return res
+
+    def window_decoder(self, key, n_windows: int = 1):
+        """The window decoder for key[:5], one window or `n_windows`
+        natively batched, built at first use and shared with the clones."""
+        dkey = key[:5] if n_windows == 1 else (key[:5], "native", n_windows)
+        fn = self._window_fns.get(dkey)
+        if fn is None:
+            n_beams, bt, no_timestamps, single_segment, strategy = key[:5]
+            fn = self._window_fns[dkey] = DL.make_window_decoder(
+                self.hp, n_beams, bt, self.compute_dtype, no_timestamps,
+                single_segment, self.vocab.token_eot, self.vocab.token_beg,
+                kv_itype=self.kv_itype, strategy=strategy, n_windows=n_windows)
+        return fn
+
+    def _decode_window_exec(self, key, *args) -> Tuple[DL.WindowResult,
+                                                       Tuple[int, int]]:
+        """Run one window decode for `key` now, unbatched: (its result,
+        (graphs, µs) its decoder captured during this call)."""
+        with DEVICE_LOCK:
+            fn = self.window_decoder(key)
+            before = fn.graphs, fn.capture_us
+            res = fn(self.params, *args)
+            return res, (fn.graphs - before[0], fn.capture_us - before[1])
 
     def clone_state(self) -> "WhisperContext":
         """A shallow clone sharing weights but with its own per-stream state
@@ -269,11 +310,12 @@ class WhisperContext:
         t0 = time.perf_counter()
         attn_ctx = next(a for a in M.attn_ctx_buckets(self.hp.n_text_ctx)
                         if a >= min(n_past + bt, self.hp.n_text_ctx))
-        logits, cache = M.decode_step(
-            self.params, torch.from_numpy(toks).to(self.device),
-            torch.from_numpy(pos).to(self.device), n_past, cache, self.xk,
-            self.xv, self.hp, dtype=self.compute_dtype, attn_ctx=attn_ctx)
-        out = logits[:, n_tok - 1].cpu().numpy()
+        with DEVICE_LOCK:
+            logits, cache = M.decode_step(
+                self.params, torch.from_numpy(toks).to(self.device),
+                torch.from_numpy(pos).to(self.device), n_past, cache, self.xk,
+                self.xv, self.hp, dtype=self.compute_dtype, attn_ctx=attn_ctx)
+            out = logits[:, n_tok - 1].cpu().numpy()
         dt = int((time.perf_counter() - t0) * 1e6)
         if n_tok == 1 and n_beam == 1:
             self.timings.t_decode_us += dt

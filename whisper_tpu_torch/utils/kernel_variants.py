@@ -1,11 +1,11 @@
 """Device times of the dequantize x matmul (csrc/qmm.cu), of the encoder's
-fused-QKV attention (csrc/enc_attn.cu) and of the flash attention
-(csrc/flash_attn.cu) against variants of their designs that were tried and
-dropped.
+fused-QKV attention (csrc/enc_attn.cu), of the flash attention
+(csrc/flash_attn.cu) and of the decode matmul (csrc/qmmt.cu) against
+variants of their designs that were tried and dropped.
 
-    python -m whisper_tpu_torch.utils.kernel_variants [qmm] [enc_attn] [flash_attn]
+    python -m whisper_tpu_torch.utils.kernel_variants [qmm] [enc_attn] [flash_attn] [qmmt]
 
-on the card; with no argument it times all three.
+on the card; with no argument it times all four.
 
 Each variant is a copy of the source with a few text edits (each anchored on
 a line of the source, so a changed source fails loudly here), built with the
@@ -17,7 +17,10 @@ the shapes chip_smoke.py times, with its timer (`device_ms`: CUDA events
 around CUDA-graph replays of calls on input copies that rotate past the
 50 MB L2): qmm at 4096^3 on bf16 x, self_attention_qkv and
 flash_self_attention at large-v3-turbo's T = 1536, true_len = 1500 on the
-f32 projection and on bf16.  The kernels of the package are not changed.
+f32 projection and on bf16, qmmt_fused per decode step of the turbo
+decoder (25 launches) at T = 1, 4, 8, 20 rows and the qkv and logits uses
+at a batched prompt pass's T = 128 and 1024.  The kernels of the package
+are not changed.
 """
 import ctypes
 import os
@@ -27,6 +30,7 @@ from pathlib import Path
 
 import torch
 
+from ..formats import quants as Q
 from ..ops import _cuda
 from ..ops import attention as FA
 from ..ops import enc_attn as EA
@@ -130,6 +134,176 @@ FLASH_VARIANTS = [("committed", []),
                                    (FLASH_STORE, FLASH_STORE + FLASH_LOAD.replace("    if (more) ", "      "))])]
 
 
+# K1: the layer norm's statistics as the split-K design first computed
+# them, two passes of f32 sums (they round some normalised rows to bf16 one
+# ulp apart from the plain version's once there are ~10^5 of them); two
+# passes of f64 sums; and two passes of f64 sums one row at a time (one
+# accumulator live, four block reductions per row).  The committed kernel
+# takes one pass of f64 sums of x and x^2.
+QMMT_LN = """    if (ln) {
+      // one pass over the staged rows, float4 at a time, all rows at once:
+      // sum(x) and sum(x^2) in f64 (x^2 exact there), so the statistics are
+      // the f32 roundings of (nearly) exact ones, as the plain version's,
+      // and the normalised rows round to bf16 alike on both (f32 sums in
+      // two orders flip some of them one bf16 ulp apart once there are
+      // ~10^5 of them)
+      const int k4n = a.K / 4;
+      const float4* xr4 = reinterpret_cast<const float4*>(xraw);
+      double* dscratch = reinterpret_cast<double*>(scratch);
+      double acc[2 * TT];  // sum(x) of each row, then sum(x^2)
+#pragma unroll
+      for (int t = 0; t < 2 * TT; ++t) acc[t] = 0.0;
+      for (int i = tid; i < k4n; i += kThreads) {
+#pragma unroll
+        for (int t = 0; t < TT; ++t) {
+          if (t < tt) {
+            const float4 v = xr4[t * k4n + i];
+            const double x0 = v.x, x1 = v.y, x2 = v.z, x3 = v.w;
+            acc[t] += (x0 + x1) + (x2 + x3);
+            acc[TT + t] += (x0 * x0 + x1 * x1) + (x2 * x2 + x3 * x3);
+          }
+        }
+      }
+      block_sums<2 * TT>(acc, dscratch);
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        const double m = acc[t] / a.K;
+        mean[t] = (float)m;
+        rstd[t] = (float)(1.0 / sqrt(acc[TT + t] / a.K - m * m + (double)a.eps));
+      }
+    }
+"""
+QMMT_VARIANTS = [("committed", []),
+                 ("f32_two_pass", [(QMMT_LN, """    if (ln) {
+      const int k4n = a.K / 4;
+      const float4* xr4 = reinterpret_cast<const float4*>(xraw);
+#pragma unroll
+      for (int t = 0; t < TT; ++t) mean[t] = 0.f;
+      for (int i = tid; i < k4n; i += kThreads) {
+#pragma unroll
+        for (int t = 0; t < TT; ++t) {
+          if (t < tt) {
+            const float4 v = xr4[t * k4n + i];
+            mean[t] += (v.x + v.y) + (v.z + v.w);
+          }
+        }
+      }
+      block_sums_f32<TT>(mean, scratch);
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        mean[t] /= a.K;
+        rstd[t] = 0.f;
+      }
+      for (int i = tid; i < k4n; i += kThreads) {
+#pragma unroll
+        for (int t = 0; t < TT; ++t) {
+          if (t < tt) {
+            const float4 v = xr4[t * k4n + i];
+            const float d0 = v.x - mean[t], d1 = v.y - mean[t];
+            const float d2 = v.z - mean[t], d3 = v.w - mean[t];
+            rstd[t] += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+          }
+        }
+      }
+      block_sums_f32<TT>(rstd, scratch);
+#pragma unroll
+      for (int t = 0; t < TT; ++t) rstd[t] = 1.0f / sqrtf(rstd[t] / a.K + a.eps);
+    }
+"""),
+                                   ("constexpr int kPerThread = 4;", """template <int TT>
+__device__ __forceinline__ void block_sums_f32(float v[TT], float* scratch) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < TT; ++t) v[t] = wtt_warp_sum(v[t]);
+  __syncthreads();
+  if (lane == 0) {
+#pragma unroll
+    for (int t = 0; t < TT; ++t) scratch[warp * TT + t] = v[t];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < TT; ++t) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += scratch[w * TT + t];
+    v[t] = s;
+  }
+}
+
+constexpr int kPerThread = 4;""")]),
+                 ("f64_two_pass", [(QMMT_LN, """    if (ln) {
+      // two passes over the staged rows, float4 at a time, all rows at
+      // once, summed in f64: the statistics are the f32 roundings of
+      // (nearly) exact ones, as the plain version's, so the normalised rows
+      // round to bf16 alike on both (f32 sums in two orders flip some of
+      // them one bf16 ulp apart once there are ~10^5 of them)
+      const int k4n = a.K / 4;
+      const float4* xr4 = reinterpret_cast<const float4*>(xraw);
+      double* dscratch = reinterpret_cast<double*>(scratch);
+      double acc[TT];
+#pragma unroll
+      for (int t = 0; t < TT; ++t) acc[t] = 0.0;
+      for (int i = tid; i < k4n; i += kThreads) {
+#pragma unroll
+        for (int t = 0; t < TT; ++t) {
+          if (t < tt) {
+            const float4 v = xr4[t * k4n + i];
+            acc[t] += ((double)v.x + (double)v.y) + ((double)v.z + (double)v.w);
+          }
+        }
+      }
+      block_sums<TT>(acc, dscratch);
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        mean[t] = (float)(acc[t] / a.K);
+        acc[t] = 0.0;
+      }
+      for (int i = tid; i < k4n; i += kThreads) {
+#pragma unroll
+        for (int t = 0; t < TT; ++t) {
+          if (t < tt) {
+            const float4 v = xr4[t * k4n + i];
+            const double d0 = v.x - mean[t], d1 = v.y - mean[t];
+            const double d2 = v.z - mean[t], d3 = v.w - mean[t];
+            acc[t] += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+          }
+        }
+      }
+      block_sums<TT>(acc, dscratch);
+#pragma unroll
+      for (int t = 0; t < TT; ++t)
+        rstd[t] = (float)(1.0 / sqrt(acc[t] / a.K + (double)a.eps));
+    }
+""")]),
+                 ("f64_two_pass_row_at_a_time", [(QMMT_LN, """    if (ln) {
+      const int k4n = a.K / 4;
+      const float4* xr4 = reinterpret_cast<const float4*>(xraw);
+      double* dscratch = reinterpret_cast<double*>(scratch);
+#pragma unroll
+      for (int t = 0; t < TT; ++t) {
+        if (t < tt) {
+          double acc[1] = {0.0};
+          for (int i = tid; i < k4n; i += kThreads) {
+            const float4 v = xr4[t * k4n + i];
+            acc[0] += ((double)v.x + (double)v.y) + ((double)v.z + (double)v.w);
+          }
+          block_sums<1>(acc, dscratch);
+          mean[t] = (float)(acc[0] / a.K);
+          acc[0] = 0.0;
+          for (int i = tid; i < k4n; i += kThreads) {
+            const float4 v = xr4[t * k4n + i];
+            const double d0 = v.x - mean[t], d1 = v.y - mean[t];
+            const double d2 = v.z - mean[t], d3 = v.w - mean[t];
+            acc[0] += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+          }
+          block_sums<1>(acc, dscratch);
+          rstd[t] = (float)(1.0 / sqrt(acc[0] / a.K + (double)a.eps));
+        }
+      }
+    }
+""")])]
+
+
 def build(name, tag, edits):
     """Install a copy of csrc/<name>.cu with `edits` under the wrapper;
     returns ptxas's register and spill lines."""
@@ -150,7 +324,7 @@ def build(name, tag, edits):
             if "Used" in ln or "spill" in ln or "C7513" in ln]
 
 
-def main(which=("qmm", "enc_attn", "flash_attn")):
+def main(which=("qmm", "enc_attn", "flash_attn", "qmmt")):
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA card")
     # the same timer as chip_smoke.py phase 3, from the root of the checkout
@@ -164,6 +338,8 @@ def main(which=("qmm", "enc_attn", "flash_attn")):
         time_enc_attn(dev, g, device_ms)
     if "flash_attn" in which:
         time_flash_attn(dev, device_ms)
+    if "qmmt" in which:
+        time_qmmt(dev, g, device_ms)
 
 
 def time_qmm(dev, g, device_ms):
@@ -187,6 +363,62 @@ def time_qmm(dev, g, device_ms):
         print(f"qmm[4096^3, bf16 x] {tag}: ms={ms:.5f} tflops={2 * N ** 3 / ms / 1e9:.1f} "
               f"max_err/max_ref={err:.2e} ptxas={ptxas}", flush=True)
     planes.clear()
+
+
+def time_qmmt(dev, g, device_ms):
+    """K1 on the turbo decoder's uses (chip_smoke.py phase 3's), planes
+    pitched as the main path installs them: per decode step at T = 1, 4,
+    8, 20 (4 layers of six matmuls and the logits head), and qkv and logits
+    at T = 128 and 1024; the largest error against the plain version."""
+    S = 1280
+    uses = [("qkv", S, 3 * S, True, True, None, False, 4),  # K, R, ln, bias, act, res, per step
+            ("o", S, S, False, True, None, True, 4),
+            ("xq", S, S, True, True, None, False, 4),
+            ("xo", S, S, False, True, None, True, 4),
+            ("mlp0", S, 4 * S, True, True, "gelu", False, 4),
+            ("mlp1", 4 * S, S, False, True, None, True, 4),
+            ("logits", S, 51866, True, False, None, False, 1)]
+    cases = ([(T, u) for T in (1, 4, 8, 20) for u in uses]
+             + [(T, u) for T in (128, 1024) for u in uses if u[0] in ("qkv", "logits")])
+    inputs = {}
+    for _, (name, K, R, ln, bias, act, res, _) in cases:
+        if name not in inputs:
+            w = torch.randn((R, K), generator=g).numpy()
+            p = Q.unpack_to_planes(Q.quantize(w, Q.GGML_TYPE_Q5_0), Q.GGML_TYPE_Q5_0, (R, K))
+            inputs[name] = QM.pitch_qweight_t(p.codes.T, p.scales.T, device=dev)
+    for tag, edits in QMMT_VARIANTS:
+        ptxas = build("qmmt", tag, edits)
+        step, err = {}, 0.0
+        for T, (name, K, R, ln, bias, act, res, per_step) in cases:
+            qw = inputs[name]
+            gx = torch.Generator().manual_seed(T)
+            rnd = lambda *sh: torch.randn(sh, generator=gx).to(dev)
+            x = rnd(T, K)
+            kw = dict(ln_w=rnd(K) if ln else None, ln_b=rnd(K) if ln else None,
+                      bias=rnd(R) if bias else None, residual=rnd(T, R) if res else None,
+                      act=act, dtype=torch.bfloat16)
+            y = QM.qmmt_fused(x, qw.codes_t, qw.scales_t, **kw)
+            ref = QM.qmmt_fused_plain(x, qw.codes_t, qw.scales_t, **kw)
+            torch.cuda.synchronize()
+            e = ((y - ref).abs().max() / ref.abs().max()).item()
+            err = max(err, e)
+            copies = {}
+
+            def planes(i, qw=qw):
+                if i not in copies:
+                    copies[i] = QM.pitch_qweight_t(qw.codes_t, qw.scales_t, device=dev)[:2]
+                return copies[i]
+            ms = device_ms(lambda i: (lambda: QM.qmmt_fused(x, *planes(i), **kw)),
+                           K * R * 9 // 8)
+            copies.clear()
+            if T > 20:
+                print(f"qmmt_fused[{name}, T={T}] {tag}: ms={ms:.5f} "
+                      f"max_err/max_ref={e:.2e}", flush=True)
+            else:
+                step[T] = step.get(T, 0.0) + per_step * ms
+        print(f"qmmt_fused per decode step (25 launches) {tag}: "
+              + " ".join(f"T={T}:{v:.5f}" for T, v in step.items())
+              + f" max_err/max_ref={err:.2e} ptxas={ptxas}", flush=True)
 
 
 def time_enc_attn(dev, g, device_ms):
@@ -250,4 +482,4 @@ def time_flash_attn(dev, device_ms):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ("qmm", "enc_attn", "flash_attn"))
+    main(sys.argv[1:] or ("qmm", "enc_attn", "flash_attn", "qmmt"))
