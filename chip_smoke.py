@@ -9,9 +9,9 @@ Phases (any failure exits non-zero; nothing is caught):
      each kernel's registers, shared memory and spills;
   3. each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (large-v3-turbo; whisper-bench -w 2's 4096^3
-     for qmm), max error beside its tolerance, then device times of the
-     kernel, the plain version and a library yardstick, with the least
-     time the card could take;
+     for qmm; K2 at a DTW pass's 32 and 128 rows), max error beside its
+     tolerance, then device times of the kernel, the plain version and a
+     library yardstick, with the least time the card could take;
   4. the paths, each with every launch count set to 0 just before it and
      read just after: a q5_0 large-v3-turbo file written from a seed,
      `whisper_tpu_torch.load()` + `transcribe()` of 40 s of seeded audio
@@ -27,14 +27,23 @@ Phases (any failure exits non-zero; nothing is caught):
      search 5, best-of 5) on the same file and audio as a wav (kv cache
      f16, then q8), and whisper-bench -w 1 and -w 2;
   5. the slice on the card against the slice on the CPU, on a small
-     decisive model: identical segments, greedy and beam search, on the
-     fused-QKV and the flash encoder routes and on -nfa's plain graphs;
+     decisive model: identical segments and DTW token timestamps, greedy
+     and beam search, on the fused-QKV and the flash encoder routes and on
+     -nfa's plain graphs (the card's device mel, the CPU's numpy mel);
   6. batched serving on the turbo file: the port's whisper-server answers
      4 concurrent greedy requests and 2 concurrent beam-search ones (their
      window decodes batched natively by the server-wide WindowBatcher),
      then each alone, every concurrent response equal to its solo one;
      then the whisper-cli with -p 4 --kv-itype q8 (the decode attention
-     kernel at 4 x 5 rows).
+     kernel at 4 x 5 rows);
+  7. before and after the window loop, on a seeded 40 s clip with two 3 s
+     silences cut in: a synthetic Silero VAD file (seed 0, Silero's
+     widths) on the card against the CPU (under the caller's TF32 flags
+     all on and at torch's defaults), its time, and the share of samples
+     its filter keeps; the device mel against the numpy mel, and each
+     one's time; the whisper-cli on the turbo file with -vad and
+     -dtw large.v3.turbo (VAD segments in the clip's time, each window's
+     t_dtw, K2 launched by the DTW passes).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -132,6 +141,11 @@ def same_under_graph(fn) -> bool:
 
 
 BATCHED_T = (4, 8, 10, 20)    # K1 rows of natively batched steps (phase 6)
+# K2 at a DTW pass (phase 7): one full-sequence decoder pass over a window's
+# tokens, T = 32 and 128 rows, through each layer's six packed planes
+DTW_T = (32, 128)
+DTW_USES = (("qkv", 1280, 3840, 1), ("o_xq_xo", 1280, 1280, 3), ("mlp0", 1280, 5120, 1),
+            ("mlp1", 5120, 1280, 1))   # name, K, R, launches per layer
 # prompt buckets of W = 4 natively batched windows: the prompt pass runs K1
 # at T = 4 x bucket rows, and K3 at B = 4, G = bucket with each row's
 # left-pad mask
@@ -144,9 +158,10 @@ def check_qmmt(dev, Q, QM):
     BATCHED_T (W = 4 greedy windows, 8 rows, W = 2 beam windows of 5, W = 4
     beam windows of 5), prompt passes at T = 4 and 32, the qkv and logits
     uses of natively batched prompt passes at T = 4 x NATIVE_PROMPT_BUCKETS
-    (W = 4 windows), and K2 (qmmt), at
-    turbo widths, on planes installed as the main path installs them (rows
-    pitched to 64 columns)."""
+    (W = 4 windows), and K2 (qmmt) at T = 1 and at a DTW pass's DTW_T rows
+    (its JSON row: one pass's 24 launches at T = 32), at turbo widths, on
+    planes installed as the main path installs them (rows pitched to 64
+    columns)."""
     S = 1280
     uses = [  # name, K, R, ln, bias, act, res, launches per step
         ("qkv", S, 3 * S, True, True, None, False, 4),
@@ -164,13 +179,15 @@ def check_qmmt(dev, Q, QM):
                 ("logits_prompt32", 32, S, 51866, True, False, None, False, 0)]
              + [(f"{u}_native_prompt4x{b}", 4 * b, S, R, True, u == "qkv", None, False, 0)
                 for b in NATIVE_PROMPT_BUCKETS for u, R in (("qkv", 3 * S), ("logits", 51866))]
-             + [
-                ("qmmt", 1, S, 3 * S, False, False, None, False, 0)])
+             + [("qmmt", 1, S, 3 * S, False, False, None, False, 0)]
+             + [(f"qmmt_dtw_{u}", T, K, R, False, False, None, False, 4 * n)
+                for T in DTW_T for u, K, R, n in DTW_USES])
     g = torch.Generator().manual_seed(0)
     step_key = {1: "qmmt_fused", 5: "qmmt_fused_beam",
                 **{T: f"qmmt_fused_T{T}" for T in BATCHED_T}}
+    dtw_key = {T: "qmmt" if T == DTW_T[0] else f"qmmt_dtw_T{T}" for T in DTW_T}
     agg = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0, bytes=0, flops=0)
-           for k in ("qmmt", *step_key.values())}
+           for k in (*dtw_key.values(), *step_key.values())}
     for name, T, K, R, ln, bias, act, res, per_step in cases:
         w = torch.randn((R, K), generator=g).numpy()
         p = Q.unpack_to_planes(Q.quantize(w, Q.GGML_TYPE_Q5_0), Q.GGML_TYPE_Q5_0, (R, K))
@@ -181,8 +198,9 @@ def check_qmmt(dev, Q, QM):
         kw = dict(ln_w=rnd(K) if ln else None, ln_b=rnd(K) if ln else None,
                   bias=rnd(R) if bias else None, residual=rnd(T, R) if res else None,
                   act=act, dtype=torch.bfloat16)
-        kernel = QM.qmmt if name == "qmmt" else QM.qmmt_fused
-        call = ((lambda: QM.qmmt(x, codes, scales, dtype=torch.bfloat16)) if name == "qmmt"
+        bare = name.startswith("qmmt")
+        kernel = QM.qmmt if bare else QM.qmmt_fused
+        call = ((lambda: QM.qmmt(x, codes, scales, dtype=torch.bfloat16)) if bare
                 else (lambda: QM.qmmt_fused(x, codes, scales, **kw)))
         y = call()
         ref = QM.qmmt_fused_plain(x, codes, scales, **kw)
@@ -193,7 +211,8 @@ def check_qmmt(dev, Q, QM):
         log(f"  check {kernel.__name__}[{name}] T={T} K={K} R={R} pitch={codes.stride(0)} "
             f"grid={-(-R // QM.TILE)}x{-(-K // ks)}: max_abs_err={err:.3e} tol={tol:.3e}")
         assert math.isfinite(err) and err <= tol, name
-        if name in ("logits", "mlp1", "qkv_prompt4") and T in (1, 5, 4, 20):
+        if (name in ("logits", "mlp1", "qkv_prompt4") and T in (1, 5, 4, 20)
+                or name == "qmmt_dtw_mlp1"):
             assert same_under_graph(call), f"{name}: not bit-identical across calls"
             log(f"  check {kernel.__name__}[{name}] T={T}: bit-identical over two calls "
                 f"and a CUDA-graph replay")
@@ -213,7 +232,7 @@ def check_qmmt(dev, Q, QM):
 
         def run_kernel(i):
             c, s = planes(i)
-            if name == "qmmt":
+            if bare:
                 return lambda: QM.qmmt(x, c, s, dtype=torch.bfloat16)
             return lambda: QM.qmmt_fused(x, c, s, **kw)
 
@@ -235,7 +254,7 @@ def check_qmmt(dev, Q, QM):
         ms = device_ms(run_kernel, nbytes)
         plain_ms = device_ms(run_plain, nbytes)
         library_ms = device_ms(run_library, 2 * K * R)
-        if T in (1, 5, 32, 8, 20) and name != "qmmt":
+        if T in (1, 5, 32, 8, 20) and not bare:
             # the product on the other route (tensor cores against CUDA-core
             # FMAs); the wrapper takes the tensor cores from QM.MMA_MIN_T rows
             chosen = QM.MMA_MIN_T
@@ -261,12 +280,15 @@ def check_qmmt(dev, Q, QM):
         b_ms, by = bound_ms(nbytes, flops)
         log(f"  time  {kernel.__name__}[{name}] T={T}: kernel_ms={ms:.5f} "
             f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={b_ms:.5f} "
-            f"({by}) launches_per_{'beam_' if T == 5 else ''}step={per_step}")
-        key = ("qmmt" if name == "qmmt" else step_key.get(T, "qmmt_fused")
+            f"({by}) launches_per_{'dtw_pass' if bare else 'beam_step' if T == 5 else 'step'}"
+            f"={per_step}")
+        # K2's row is one DTW pass at T = DTW_T[0]; its T = 1 check counts
+        # in its error only
+        key = (dtw_key.get(T, "qmmt") if bare else step_key.get(T, "qmmt_fused")
                if per_step else "qmmt_fused")
         a = agg[key]
         a["err"] = max(a["err"], err)
-        weight = per_step if kernel is QM.qmmt_fused else 1
+        weight = per_step
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms)):
             a[k] += weight * v
         a["bytes"] += weight * nbytes
@@ -280,9 +302,17 @@ def check_qmmt(dev, Q, QM):
             f"bound_ms={b_ms:.5f} ({by}) ratio_to_T1={a['ms'] / agg['qmmt_fused']['ms']:.3f} "
             f"bound_ratio_to_T1={b_ms / bound_ms(agg['qmmt_fused']['bytes'], agg['qmmt_fused']['flops'])[0]:.3f} "
             f"kernel_not_slower_than_library={a['ms'] <= a['library_ms']}")
-    for key in step_key.values():
-        if key != "qmmt_fused":
-            agg["qmmt_fused"]["err"] = max(agg["qmmt_fused"]["err"], agg.pop(key)["err"])
+    for T, key in dtw_key.items():
+        a = agg[key]
+        b_ms, by = bound_ms(a["bytes"], a["flops"])
+        log(f"  qmmt per DTW pass (T={T}), 24 launches: kernel_ms={a['ms']:.5f} "
+            f"plain_ms={a['plain_ms']:.5f} library_ms={a['library_ms']:.5f} "
+            f"bound_ms={b_ms:.5f} ({by}) kernel_to_library={a['ms'] / a['library_ms']:.3f} "
+            f"kernel_to_bound={a['ms'] / b_ms:.3f}")
+    for key in (*step_key.values(), *dtw_key.values()):
+        into = "qmmt" if key in dtw_key.values() else "qmmt_fused"
+        if key != into:
+            agg[into]["err"] = max(agg[into]["err"], agg.pop(key)["err"])
     return agg
 
 
@@ -1058,10 +1088,54 @@ def run_cli(W, TC, counters, model_path: str, wav: str, out_dir: str, extra):
     return launches
 
 
+@contextlib.contextmanager
+def dtw_matrices(DTW, into: list):
+    """Inside, each DTW cost matrix (tokens x audio tokens, after the
+    normalisation, median filter and head mean) is appended to `into`."""
+    inner = DTW.dtw_and_backtrace
+
+    def keep(x):
+        into.append(x.copy())
+        return inner(x)
+
+    DTW.dtw_and_backtrace = keep
+    try:
+        yield
+    finally:
+        DTW.dtw_and_backtrace = inner
+
+
+DTW_NEAR_TIE = 1e-3     # relative cost gap of two DTW paths that a bf16-level matrix flips
+
+
+def dtw_paths_tie(DTW, name: str, card_m: list, cpu_m: list) -> bool:
+    """Where the card's and the CPU's DTW paths differ, whether each such
+    window is a near-tie: under the CPU's matrix the card's path costs
+    within DTW_NEAR_TIE (relative) of the CPU's optimal one.  Logs each
+    window's matrix difference and cost gap."""
+    ok = True
+    for w, (a, b) in enumerate(zip(card_m, cpu_m)):
+        pa, pb = DTW.dtw_and_backtrace(a), DTW.dtw_and_backtrace(b)
+        cost = lambda m, pth: float(m[pth[0], pth[1]].astype(np.float64).sum())
+        d = float(np.abs(a - b).max())
+        gap = cost(b, pa) - cost(b, pb)
+        same = np.array_equal(pa, pb)
+        log(f"  [{name}] dtw window {w}: max|M_card - M_cpu|={d:.3e} (max|M| "
+            f"{np.abs(b).max():.3e}) paths_equal={same} cost_gap_under_cpu_M={gap:.3e} "
+            f"(relative {abs(gap) / abs(cost(b, pb)):.3e})")
+        ok &= same or abs(gap) <= DTW_NEAR_TIE * abs(cost(b, pb))
+    return ok
+
+
 def card_matches_cpu(tmp: str) -> None:
     """The slice on the card against the slice on the CPU (bf16 compute,
-    packed weights on both) on a small decisive model and 35 s of seeded
-    audio: identical segments over two windows, greedy for both kv caches,
+    packed weights on both; the card's default device mel, the CPU's numpy
+    mel; DTW token timestamps on, n_top_most=1, so each window's DTW pass
+    runs K2 on the card and its plain version on the CPU) on a small
+    decisive model and 35 s of seeded audio: identical segments and t_dtw
+    over two windows (t_dtw may differ, by an audio token at most, only
+    where the two DTW paths nearly tie: `dtw_paths_tie`; the bf16 cost
+    matrices differ by ~1e-2), greedy for both kv caches,
     beam search for both kv caches, greedy on the flash encoder route
     (WTPU_ENC_ATTN=flash: K6 on the card, its plain version on the CPU),
     and greedy on -nfa's graphs (flash off, WTPU_ENC_ATTN and
@@ -1071,7 +1145,9 @@ def card_matches_cpu(tmp: str) -> None:
     import whisper_tpu_torch as W
     from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
     from whisper_tpu_torch.ops import attention as FA
+    from whisper_tpu_torch.decoding import dtw as DTW
     from whisper_tpu_torch.ops import decode_attn as DA
+    from whisper_tpu_torch.ops import qmm as QM
     from whisper_tpu_torch.utils.synth import write_synth_model
 
     hp = WhisperHParams(n_vocab=51865, n_audio_ctx=1500, n_audio_state=128,
@@ -1096,21 +1172,42 @@ def card_matches_cpu(tmp: str) -> None:
         os.environ["WTPU_DECODE_ATTN"] = dec_route
         FA.set_flash_enabled(flash_on)
         FA.flash_self_attention.launches = DA.self_attend_q8.launches = 0
-        gpu = W.transcribe(W.load(path, kv_itype=kv), params, audio)
-        n_k6, n_k3 = FA.flash_self_attention.launches, DA.self_attend_q8.launches
-        cpu = W.transcribe(W.load(path, device="cpu", kv_itype=kv,
-                                  use_packed_weights=True,
-                                  compute_dtype=torch.bfloat16), params, audio)
+        QM.qmmt.launches = 0
+        card_ctx = W.load(path, kv_itype=kv)
+        cpu_ctx = W.load(path, device="cpu", kv_itype=kv, use_packed_weights=True,
+                         compute_dtype=torch.bfloat16)
+        assert (card_ctx.mel_fn.backend, cpu_ctx.mel_fn.backend) == ("torch", "numpy")
+        for c in (card_ctx, cpu_ctx):
+            c.enable_dtw(n_top_most=1)
+        card_m, cpu_m = [], []
+        with dtw_matrices(DTW, card_m):
+            gpu = W.transcribe(card_ctx, params, audio)
+        n_k6, n_k3, n_k2 = (FA.flash_self_attention.launches, DA.self_attend_q8.launches,
+                            QM.qmmt.launches)
+        with dtw_matrices(DTW, cpu_m):
+            cpu = W.transcribe(cpu_ctx, params, audio)
         del os.environ["WTPU_ENC_ATTN"], os.environ["WTPU_DECODE_ATTN"]
         FA.set_flash_enabled(True)
         a = [(s.t0, s.t1, s.text) for s in gpu]
         b = [(s.t0, s.t1, s.text) for s in cpu]
         log(f"  [{name} {kv}] card segments={a}")
         assert a == b and len(a) >= 2, (a, b)
+        ta = [[t.t_dtw for t in s.tokens] for s in gpu]
+        tb = [[t.t_dtw for t in s.tokens] for s in cpu]
+        assert any(t >= 0 for ts in ta for t in ts) and len(card_m) == len(cpu_m)
+        if ta != tb:
+            log(f"  [{name} {kv}] t_dtw differ: card={ta} cpu={tb}")
+            assert all(abs(x - y) <= 2 for sa, sb in zip(ta, tb) for x, y in zip(sa, sb))
+            assert dtw_paths_tie(DTW, f"{name} {kv}", card_m, cpu_m), (ta, tb)
         assert (n_k6 > 0) == (enc_route == "flash"), n_k6
         assert (n_k3 > 0) == (kv == "q8" and dec_route == "auto"), n_k3
-        log(f"  [{name} {kv}] card == cpu: {len(a)} segments identical (launches on "
-            f"the card: flash_self_attention {n_k6}, self_attend_q8 {n_k3})")
+        assert n_k2 == 6 * 3 * card_ctx.timings.n_dtw > 0, n_k2
+        d_max = max(float(np.abs(x - y).max()) for x, y in zip(card_m, cpu_m))
+        log(f"  [{name} {kv}] card == cpu: {len(a)} segments identical, t_dtw "
+            f"{'identical' if ta == tb else 'one audio token apart at a near-tie'} "
+            f"(DTW cost matrices max|card - cpu|={d_max:.3e}) "
+            f"(launches on the card: flash_self_attention {n_k6}, self_attend_q8 {n_k3}, "
+            f"qmmt {n_k2} over {card_ctx.timings.n_dtw} DTW passes)")
 
 
 # ---------------------------------------------------------------------------
@@ -1413,6 +1510,197 @@ def run_cli_parallel(TC, TB, counters, model_path: str, wav: str, out_dir: str) 
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: before and after the window loop (VAD, device mel, DTW)
+# ---------------------------------------------------------------------------
+
+VAD_SILENCES_S = (12, 26)    # 3 s of silence cut in at each
+# the synthetic Silero's probabilities stay within ~0.41-0.65, so a silence
+# never falls 0.15 below a threshold at their median (the state machine's
+# end of speech): a 2 s maximum speech duration splits segments, and a split
+# inside a silence lets the silence be cut
+VAD_MAX_SPEECH_S = 2.0
+
+
+def vad_clip() -> np.ndarray:
+    pcm = seeded_audio(40.0, seed=0)
+    for s in VAD_SILENCES_S:
+        pcm[16000 * s:16000 * (s + 3)] = 0.0
+    return pcm
+
+
+@contextlib.contextmanager
+def tf32_flags(matmul: bool, cudnn: bool):
+    """The caller's TF32 flags set as given inside, restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def check_vad(vad_path: str, pcm: np.ndarray, repeats: int = 5) -> float:
+    """The Silero VAD on the card against the CPU on `pcm`, under the
+    caller's TF32 flags all on (the first call, which captures the chunk
+    bucket's graph) and at torch's defaults (cuDNN TF32 on, matmul off):
+    max |probs difference| <= 1e-5 and equal segments at a threshold at the
+    median of the card's probabilities; then the host clock of `repeats`
+    calls on the card and the share of samples the filter keeps.  Returns
+    the threshold."""
+    from whisper_tpu_torch.decoding.params import TranscribeParams, VadParams
+    from whisper_tpu_torch.models.vad import pipeline as VP
+    from whisper_tpu_torch.models.vad import silero as VS
+
+    cpu = VS.VadContext.from_file(vad_path, device="cpu")
+    t0 = time.perf_counter()
+    want = cpu.detect_speech(pcm)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    card = VS.VadContext.from_file(vad_path)
+    assert card.device.type == "cuda"
+    got = {}
+    for label, flags in (("all TF32 on, first call", (True, True)),
+                         ("torch defaults", (False, True))):
+        with tf32_flags(*flags):
+            t0 = time.perf_counter()
+            got[label] = card.detect_speech(pcm)
+            ms = 1e3 * (time.perf_counter() - t0)
+        err = float(np.abs(got[label] - want).max())
+        log(f"  vad card vs cpu [{label}]: max_abs_err={err:.3e} tol=1e-05 "
+            f"chunks={len(want)} card_ms={ms:.3f}")
+        assert err <= 1e-5, (label, err)
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        card.detect_speech(pcm)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    probs = got["torch defaults"]
+    thr = float(np.median(probs))
+    vp = VadParams(threshold=thr, max_speech_duration_s=VAD_MAX_SPEECH_S)
+    segs = {k: [(s.start, s.end) for s in VS.segments_from_probs(p, vp)]
+            for k, p in (("card", probs), ("cpu", want))}
+    log(f"  vad 40 s on the card: ms median={float(np.median(walls)):.3f} "
+        f"min={min(walls):.3f} max={max(walls):.3f} runs={repeats} "
+        f"(bucket {max(8, 1 << (len(want) - 1).bit_length())} chunks, one graph replay; "
+        f"CPU eager {cpu_ms:.1f} ms)")
+    log(f"  vad threshold (median of the card's probs)={thr!r} "
+        f"max_speech_s={VAD_MAX_SPEECH_S}: card segments={segs['card']}")
+    assert segs["card"] == segs["cpu"] and segs["card"], segs
+
+    class OnCard:
+        device = card.device
+
+    params = TranscribeParams(vad=True, vad_model_path=vad_path, vad_params=vp)
+    filtered, _, used = VP.filter_speech(OnCard(), params, pcm)
+    kept = len(filtered) / len(pcm)
+    log(f"  vad filter: kept_share={kept:.4f} segments_used={used}")
+    assert 0 < kept < 1
+    return thr
+
+
+def check_device_mel(path: str, pcm: np.ndarray, repeats: int = 5) -> None:
+    """The device mel (backend "torch", the card's default) against the
+    numpy mel on `pcm` with the turbo file's filters: max |diff| over max
+    |mel| <= 1e-5, and each backend's host clock per call (t_mel_us)."""
+    from whisper_tpu_torch.audio.mel import LogMel
+    from whisper_tpu_torch.models.whisper.load import _read_header
+
+    with open(path, "rb") as f:
+        _, filters, _, _ = _read_header(f)
+    fns = {"numpy": LogMel(filters.data), "torch": LogMel(filters.data, backend="torch")}
+    out, us = {}, {}
+    for name, fn in fns.items():
+        out[name] = fn(pcm)
+        walls = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn(pcm)
+            walls.append(int((time.perf_counter() - t0) * 1e6))
+        us[name] = walls
+    (ref, n_ref), (got, n) = out["numpy"], out["torch"]
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    log(f"  device mel vs numpy mel: shape={got.shape} max_rel_err={rel:.3e} tol=1e-05")
+    for name, walls in us.items():
+        log(f"  t_mel_us [{name}] median={int(np.median(walls))} min={min(walls)} "
+            f"max={max(walls)} runs={repeats}")
+    assert n == n_ref and got.shape == ref.shape and rel <= 1e-5
+
+
+def run_cli_vad_dtw(W, TC, DTW, counters, model_path: str, wav: str, vad_path: str,
+                    thr: float, pcm: np.ndarray, out_dir: str) -> dict:
+    """The port's whisper-cli on the card with -vad -vm -vt <thr> -vmsd
+    -dtw large.v3.turbo -ojf (beam 5 by default): >= 1 VAD segment, segment
+    times in the original clip, t_dtw set on text tokens, non-decreasing
+    within each window and inside it, and K2 launched by the DTW passes.
+    Returns the run's launches."""
+    from whisper_tpu_torch.models.vad import pipeline as VP
+
+    windows, seen = [], {}
+    inner_dtw, inner_tr = DTW.compute_token_level_timestamps_dtw, W.transcribe
+
+    def dtw(ctx, params, result_all, i_segment, n_segments, seek, n_frames, **kw):
+        t0 = time.perf_counter()
+        inner_dtw(ctx, params, result_all, i_segment, n_segments, seek, n_frames, **kw)
+        toks = [t for s in result_all[i_segment:i_segment + n_segments] for t in s.tokens
+                if t.id < ctx.vocab.token_eot]
+        windows.append((seek, n_frames, [t.t_dtw for t in toks],
+                        time.perf_counter() - t0))
+
+    def transcribe(ctx, *a, **kw):
+        t0 = time.perf_counter()
+        segs = inner_tr(ctx, *a, **kw)
+        torch.cuda.synchronize()
+        seen.update(s=time.perf_counter() - t0, ctx=ctx, segs=segs)
+        return segs
+
+    for fn in counters:
+        fn.launches = 0
+    DTW.compute_token_level_timestamps_dtw, W.transcribe = dtw, transcribe
+    base = os.path.join(out_dir, "cli_vad_dtw")
+    t0 = time.perf_counter()
+    try:
+        rc = TC.run(["-m", model_path, "-f", wav, "-vad", "-vm", vad_path, "-vt", repr(thr),
+                     "-vmsd", str(VAD_MAX_SPEECH_S), "-dtw", "large.v3.turbo", "-ojf",
+                     "-of", base, "-np"])
+    finally:
+        DTW.compute_token_level_timestamps_dtw, W.transcribe = inner_dtw, inner_tr
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    assert rc == 0
+    ctx, segs = seen["ctx"], seen["segs"]
+    tm = ctx.timings
+    vctx = VP.get_vad_context(vad_path, ctx.device)
+    with open(base + ".json") as f:
+        js = json.load(f)["transcription"]
+    n_cs = len(pcm) // 160
+    used = ctx.vad_segments_used
+    dtw_s = sum(w[3] for w in windows)
+    log(f"  whisper-cli -vad -dtw large.v3.turbo: cli_wall_s={wall:.3f} "
+        f"transcribe_wall_s={seen['s']:.3f} segments={len(segs)} json_segments={len(js)} "
+        f"vad_segments={used} mel_backend={ctx.mel_fn.backend}")
+    log(f"    t_mel_ms={tm.t_mel_us / 1e3:.3f} t_vad_ms (this context, all calls)="
+        f"{vctx.t_vad_us / 1e3:.3f} encode_ms_per_window={ms_per(tm.t_encode_us, tm.n_encode):.3f} "
+        f"windows={tm.n_encode} dtw_passes={tm.n_dtw} dtw_pass_ms_each="
+        f"{ms_per(tm.t_dtw_us, tm.n_dtw):.3f} dtw_total_ms_each (pass + host DTW)="
+        f"{1e3 * dtw_s / max(len(windows), 1):.3f}")
+    log(f"    launches={json.dumps(launches)}")
+    for seek, n_frames, ts, sec in windows:
+        log(f"    dtw window seek={seek} n_frames={n_frames} text_tokens={len(ts)} "
+            f"t_dtw={ts[:12]}{'...' if len(ts) > 12 else ''} ms={1e3 * sec:.1f}")
+        assert all(seek <= t < seek + n_frames for t in ts), (seek, n_frames, ts)
+        assert all(a <= b for a, b in zip(ts, ts[1:])), ts
+    for sg in segs[:6]:
+        log(f"    [{sg.t0:6d} -> {sg.t1:6d}] {sg.text!r}")
+    assert used and all(0 <= a < b <= n_cs for a, b in used), used
+    # remapped times lie inside the mapping table's original range; the
+    # 10 ms minimum duration may push a t1 10 ms past the clip's end
+    assert segs and all(0 <= s.t0 <= s.t1 <= n_cs + 10 for s in segs)
+    assert windows and any(ts for _, _, ts, _ in windows)
+    assert launches["qmmt"] == 6 * 4 * tm.n_dtw > 0, launches
+    assert launches["qmmt_fused"] > 0 and launches["self_attention_qkv"] > 0
+    return launches
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -1429,6 +1717,7 @@ def main() -> int:
     from whisper_tpu_torch.cli import server as TS
     from whisper_tpu_torch.cli import transcribe as TC
     from whisper_tpu_torch.decoding import device_loop as DL
+    from whisper_tpu_torch.decoding import dtw as DTW
     from whisper_tpu_torch.decoding import graphs as G
     from whisper_tpu_torch.formats import quants as Q
     from whisper_tpu_torch.models.whisper import model as M
@@ -1438,6 +1727,7 @@ def main() -> int:
     from whisper_tpu_torch.ops import decode_attn as DA
     from whisper_tpu_torch.ops import enc_attn as EA
     from whisper_tpu_torch.ops import qmm as QM
+    from whisper_tpu_torch.models.vad.writer import synth_vad_tensors, write_vad_model
     from whisper_tpu_torch.runtime import batching as TBA
     from whisper_tpu_torch.utils.synth import write_synth_model
 
@@ -1519,6 +1809,17 @@ def main() -> int:
     heading("6. batched serving: whisper-server with concurrent requests, whisper-cli -p 4", t_start)
     serve_batched(TS, counters, path, turbo.name)
     run_cli_parallel(TC, TBA, counters, path, wav, turbo.name)
+
+    heading("7. before and after the window loop: VAD, device mel, DTW", t_start)
+    vad_path = os.path.join(turbo.name, "silero-synth.bin")
+    write_vad_model(vad_path, synth_vad_tensors(seed=0))
+    pcm_vad = vad_clip()
+    thr = check_vad(vad_path, pcm_vad)
+    check_device_mel(path, pcm_vad)
+    wav_vad = os.path.join(turbo.name, "audio-40s-silences.wav")
+    write_wav(wav_vad, pcm_vad)
+    cli_dtw = run_cli_vad_dtw(W, TC, DTW, counters, path, wav_vad, vad_path, thr, pcm_vad,
+                              turbo.name)
     turbo.cleanup()
 
     def entry(name, src, replaces, agg, n_launches):
@@ -1528,11 +1829,14 @@ def main() -> int:
                 "plain_ms": agg["plain_ms"], "bound_ms": b_ms, "bound_by": by,
                 "library_ms": agg["library_ms"]}
 
-    # launches: K1, K3, K4 on the q8 load() + transcribe() path; K5 on
-    # whisper-bench -w 2; K6 on the flash-route encode
+    # launches: K1, K3, K4 on the q8 load() + transcribe() path; K2 on the
+    # whisper-cli's DTW passes (phase 7); K5 on whisper-bench -w 2; K6 on the
+    # flash-route encode
     kernels = [
         entry("qmmt_fused", "whisper_tpu_torch/csrc/qmmt.cu",
               "whisper_tpu/ops/qmm.py:333", k1["qmmt_fused"], launches["qmmt_fused"]),
+        entry("qmmt", "whisper_tpu_torch/csrc/qmmt.cu",
+              "whisper_tpu/ops/qmm.py:216", k1["qmmt"], cli_dtw["qmmt"]),
         entry("self_attend_q8", "whisper_tpu_torch/csrc/decode_attn.cu",
               "whisper_tpu/ops/decode_attn.py:96", k3, launches["self_attend_q8"]),
         entry("self_attention_qkv", "whisper_tpu_torch/csrc/enc_attn.cu",
@@ -1542,11 +1846,6 @@ def main() -> int:
         entry("flash_self_attention", "whisper_tpu_torch/csrc/flash_attn.cu",
               "whisper_tpu/ops/attention.py:48", k6, n_flash),
     ]
-    # qmmt (K2) is the same kernel with its prologue and epilogue off; no
-    # path calls it, so it is reported apart from the paths' kernels
-    off_path = [entry("qmmt", "whisper_tpu_torch/csrc/qmmt.cu",
-                      "whisper_tpu/ops/qmm.py:216", k1["qmmt"], launches["qmmt"])]
-    log(json.dumps({"off_path_kernels": off_path}))
     log(f"  total_s={time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": kernels}))
     log(nvidia_smi_line())

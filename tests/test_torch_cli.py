@@ -95,8 +95,7 @@ def _assert_json_equal(a, b, where="json"):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["-vad"], "-vad"), (["--grammar", "g.gbnf", "--grammar-rule", "root"], "--grammar"),
-    (["-dtw", "tiny.en"], "-dtw"),
+    (["--grammar", "g.gbnf", "--grammar-rule", "root"], "--grammar"),
     (["--precision", "ggml_cpu_f16"], "--precision ggml_cpu_f16")])
 def test_cli_refuses_unported_flags(files, capsys, flags, name):
     model, wav = files

@@ -3,7 +3,8 @@
 Verbatim copies must stay byte-identical to their originals (relative
 imports resolve inside each package, so no line differs).  The two edited
 copies are held to the originals by behaviour: formats/quants.py (the
-optional native fast path dropped) and audio/mel.py (numpy path only).
+optional native fast path dropped) and audio/mel.py (its numpy path here;
+the device mel in tests/test_torch_vad.py).
 The same synthetic file through both loaders gives equal arrays, planes,
 vocab and hyperparameters.
 """
@@ -35,6 +36,7 @@ VERBATIM = [
     "decoding/tokenizer.py", "decoding/languages.py", "decoding/logits.py",
     "decoding/params.py", "decoding/sampling.py", "decoding/stdrng.py",
     "decoding/timestamps.py", "runtime/timings.py", "audio/io.py",
+    "models/vad/writer.py",
 ]
 
 HP = WhisperHParams(n_vocab=51865, n_audio_ctx=64, n_audio_state=64,
@@ -86,7 +88,7 @@ def test_log_mel_matches():
     assert na == nb
     np.testing.assert_array_equal(ma, mb)
     with pytest.raises(NotImplementedError):
-        TMEL.LogMel(filters, backend="jax")
+        TMEL.LogMel(filters, backend="native")
 
 
 @pytest.mark.parametrize("qtype", ["Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0",

@@ -2,9 +2,12 @@
 version on the same CUDA inputs (the decode matmul and decode attention
 also at the rows of natively batched windows), the window loop's CUDA
 graphs against its eager loop (one window, and W windows batched), the
-batcher's concurrent requests against sequential ones, and the slice on
-the card against the slice on the CPU.  They need a CUDA card and skip without one (run them on
-the card with `python -m pytest tests/test_torch_gpu.py -m gpu`).
+batcher's concurrent requests against sequential ones, the slice on the
+card against the slice on the CPU, and the steps before and after the
+window loop (the VAD and the device mel against the CPU, K2 at a DTW
+pass's rows, a VAD + DTW transcribe against the CPU's).  They need a CUDA
+card and skip without one (run them on the card with
+`python -m pytest tests/test_torch_gpu.py -m gpu`).
 
 Tolerances: qmmt 1e-4 of max |y| (f32 sums in another order over K up to
 5120; the kernel itself is bit-identical from call to call); self_attend_q8 f32 1e-5, bf16 2e-2 (one bf16 ulp on p * s_v);
@@ -400,3 +403,112 @@ def test_joining_threads_match_sequential_calls(cuda, tmp_path_factory):
         assert [(s.t0, s.t1, s.text) for s in got[i]] == \
             [(s.t0, s.t1, s.text) for s in want], i
         assert len(want) >= 2
+
+
+# the steps before and after the window loop: the VAD, the device mel, and
+# the DTW pass's bare matmul (K2) at a window's token counts
+
+@pytest.fixture(scope="module")
+def vad_file(tmp_path_factory):
+    from whisper_tpu_torch.models.vad.writer import synth_vad_tensors, write_vad_model
+
+    path = str(tmp_path_factory.mktemp("vad") / "silero-synth.bin")
+    write_vad_model(path, synth_vad_tensors(seed=0))
+    return path
+
+
+def _vad_clip(seconds=40.0):
+    from chip_smoke import vad_clip
+
+    return vad_clip()[:int(16000 * seconds)]
+
+
+@pytest.mark.parametrize("matmul_tf32,cudnn_tf32", [(False, True), (True, True)])
+def test_vad_card_matches_cpu(cuda, vad_file, matmul_tf32, cudnn_tf32):
+    # torch's default flags (cuDNN TF32 on) and all TF32 on: the module pins
+    # full f32 itself, so the card stays within 1e-5 of the CPU and the
+    # segments at the median threshold are the CPU's
+    from chip_smoke import VAD_MAX_SPEECH_S, tf32_flags
+    from whisper_tpu_torch.decoding.params import VadParams
+    from whisper_tpu_torch.models.vad import silero as VS
+
+    pcm = _vad_clip()
+    want = VS.VadContext.from_file(vad_file, device="cpu").detect_speech(pcm)
+    card = VS.VadContext.from_file(vad_file)
+    with tf32_flags(matmul_tf32, cudnn_tf32):
+        got = card.detect_speech(pcm)
+        again = card.detect_speech(pcm)
+    assert np.abs(got - want).max() <= 1e-5
+    np.testing.assert_array_equal(got, again)
+    vp = VadParams(threshold=float(np.median(got)), max_speech_duration_s=VAD_MAX_SPEECH_S)
+    assert ([(s.start, s.end) for s in VS.segments_from_probs(got, vp)]
+            == [(s.start, s.end) for s in VS.segments_from_probs(want, vp)])
+
+
+def test_vad_card_carries_state_like_cpu(cuda, vad_file):
+    from whisper_tpu_torch.models.vad import silero as VS
+
+    pcm = _vad_clip(11.0)
+    cpu = VS.VadContext.from_file(vad_file, device="cpu")
+    card = VS.VadContext.from_file(vad_file)
+    for reset, part in ((True, pcm), (False, pcm[:16000 * 3])):
+        want = cpu.detect_speech(part, reset=reset)
+        got = card.detect_speech(part, reset=reset)
+        assert np.abs(got - want).max() <= 1e-5
+
+
+def test_device_mel_matches_numpy(cuda):
+    from whisper_tpu_torch.audio.mel import LogMel
+
+    rng = np.random.default_rng(0)
+    filters = np.abs(rng.standard_normal((128, 201))).astype(np.float32) * 0.01
+    pcm = _vad_clip()
+    ref, n_ref = LogMel(filters)(pcm)
+    got, n = LogMel(filters, backend="torch")(pcm)
+    assert n == n_ref and got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("T", [1, 8, 32, 128, 224])
+@pytest.mark.parametrize("K,R", [(1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280)])
+def test_qmmt_kernel_dtw_rows(cuda, T, K, R):
+    # K2 at a DTW pass's rows (a window's tokens) on the turbo decoder's
+    # planes: within 1e-4 of max |y| of its plain version, the same bits
+    # over two calls
+    codes, scales, _ = _planes(Q.GGML_TYPE_Q5_0, K, R, 7, cuda)
+    x = torch.from_numpy(np.random.default_rng(T).standard_normal((T, K))
+                         .astype(np.float32)).to(cuda)
+    n = QM.qmmt.launches
+    y = QM.qmmt(x, codes, scales, dtype=torch.bfloat16)
+    y2 = QM.qmmt(x, codes, scales, dtype=torch.bfloat16)
+    assert QM.qmmt.launches == n + 2
+    ref = QM.qmmt_fused_plain(x, codes, scales, dtype=torch.bfloat16)
+    assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert torch.equal(y, y2)
+
+
+def test_transcribe_vad_dtw_card_matches_cpu(cuda, vad_file, tmp_path_factory):
+    # VAD and DTW on the small decisive model: the card's segments and t_dtw
+    # are the CPU's (packed weights and bf16 on both; the DTW pass runs K2
+    # on the card)
+    import whisper_tpu_torch as W
+    from chip_smoke import VAD_MAX_SPEECH_S
+    from whisper_tpu_torch.models.vad import silero as VS
+
+    _decisive_ctx(tmp_path_factory, "f16")       # writes the file once
+    path = _DECISIVE["path"]
+    pcm = _vad_clip(35.0)
+    thr = float(np.median(VS.VadContext.from_file(vad_file, device="cpu").detect_speech(pcm)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctx = W.load(path, device=dev, use_packed_weights=True, compute_dtype=torch.bfloat16)
+        ctx.enable_dtw(n_top_most=1)
+        p = W.TranscribeParams(temperature_inc=0.0, vad=True, vad_model_path=vad_file)
+        p.vad_params.threshold = thr
+        p.vad_params.max_speech_duration_s = VAD_MAX_SPEECH_S
+        n = QM.qmmt.launches
+        segs = W.transcribe(ctx, p, pcm)
+        out[dev] = ([(s.t0, s.t1, s.text, [t.t_dtw for t in s.tokens]) for s in segs],
+                    ctx.vad_segments_used, QM.qmmt.launches - n)
+    assert out["cuda"][:2] == out["cpu"][:2] and len(out["cuda"][0]) >= 2
+    assert out["cuda"][2] > 0 and out["cpu"][2] == 0

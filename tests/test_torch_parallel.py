@@ -60,7 +60,4 @@ def test_transcribe_parallel_unbatched_and_refusals(model_path, pcm):
     batched = t_parallel(tctx, p, pcm, 2)
     seq = t_parallel(tctx, p, pcm, 2, batched=False)
     assert [(s.t0, s.t1, s.text) for s in seq] == [(s.t0, s.t1, s.text) for s in batched]
-    p.vad = True
-    with pytest.raises(NotImplementedError):
-        t_parallel(tctx, p, pcm, 2)
     assert np.isfinite([s.t0 for s in seq]).all()

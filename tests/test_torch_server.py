@@ -9,7 +9,8 @@ least one round runs several requests' windows as one native batch.  The
 port's batcher gets a 2 s straggler deadline (its ServerState's
 batch_wait_s), so the three requests' first windows meet whatever the
 order their encodes take on a loaded host.  Then /health, GET /, a /load
-hot swap with a request after it, and -vm's refusal.
+hot swap with a request after it, and the refusal of a missing model.
+VAD requests are compared in tests/test_torch_vad_cli.py.
 """
 
 import io
@@ -142,7 +143,7 @@ def test_server_matches_jax_and_coalesces(files, started):
     assert b.n_live == 0
 
 
-def test_server_health_load_and_refusals(files, started, capsys):
+def test_server_health_load_and_refusals(files, started):
     model, wavs = files
     httpd = TS.serve(model, host="127.0.0.1", port=0,
                      defaults={"language": "en", "temperature_inc": 0.0}, device="cpu")
@@ -167,9 +168,3 @@ def test_server_health_load_and_refusals(files, started, capsys):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(url + "/load", {"model": ("", model + ".missing")})
     assert e.value.code == 400
-    # VAD is not ported: a request asking for it gets the error, -vm exits
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(url + "/inference", {**fields, "vad": ("", "true")})
-    assert e.value.code == 500 and "not ported" in e.value.read().decode()
-    assert TS.main(["-m", model, "-vm", "silero.bin"]) == 2
-    assert "not ported" in capsys.readouterr().err

@@ -1,13 +1,15 @@
-"""Log-mel spectrogram frontend (host numpy path).
+"""Log-mel spectrogram frontend: the host numpy path and the device mel.
 
 Bit-parity target: the reference `log_mel_spectrogram`
 (src/whisper.cpp:3176-3254) — periodic Hann(400), hop 160, reflect-pad 200 at
 the start, 30 s of zeros + 200 at the end, power spectrum, mel filterbank dot,
 `log10(max(s, 1e-10))`, global clamp to `max-8`, normalize `(x+4)/4`.
 
-The numpy functions are copies of whisper_tpu/audio/mel.py's host path; the
-device (rfft) mel of that module is not ported yet, so `LogMel` accepts only
-backend="numpy".
+The numpy functions are copies of whisper_tpu/audio/mel.py's host path.
+`_log_mel_torch` is the counterpart of its batched-rfft device mel
+(`_log_mel_jax`): one `torch.fft.rfft` over all frames, f32 throughout, on
+the device the `LogMel` was given (backend="torch").  backend="native" (the
+JAX package's C helper) is not ported.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from ..models.whisper.hparams import HOP_LENGTH, N_FFT, N_SAMPLES_PER_CHUNK, SAMPLE_RATE
 
@@ -61,20 +64,56 @@ def _log_mel_numpy(padded: np.ndarray, filters: np.ndarray, window: np.ndarray,
     return (((mel + 4.0) / 4.0).T).astype(np.float32)
 
 
-class LogMel:
-    """Stateful wrapper holding the filterbank; mirrors whisper_pcm_to_mel."""
+def _log_mel_torch(padded: torch.Tensor, filters: torch.Tensor,
+                   window: torch.Tensor, n_len: int) -> torch.Tensor:
+    """padded audio -> normalized log-mel (n_mel, n_len), all f32 on the
+    tensors' device (whisper_tpu/audio/mel.py `_log_mel_jax`).  The caller
+    holds full-f32 products (`decoding/graphs.py full_f32`)."""
+    frames = padded.unfold(0, N_FFT, HOP_LENGTH)[:n_len]   # (n_len, 400) view
+    frames = frames * window[None, :]
+    spec = torch.fft.rfft(frames, n=N_FFT, dim=-1)
+    power = spec.real * spec.real + spec.imag * spec.imag   # (n_len, 201)
+    mel = power @ filters.T                                 # (n_len, n_mel)
+    mel = torch.log10(torch.clamp(mel, min=1e-10))
+    mel = torch.maximum(mel, mel.max() - 8.0)
+    return ((mel + 4.0) / 4.0).T                            # (n_mel, n_len)
 
-    def __init__(self, filters: np.ndarray, backend: str = "numpy"):
-        if backend != "numpy":
+
+class LogMel:
+    """Stateful wrapper holding the filterbank; mirrors whisper_pcm_to_mel.
+
+    backend="numpy" (default) is the reference-exact host path;
+    backend="torch" runs the batched-rfft mel on `device` (default the CUDA
+    card, as every entry point of the port), within ~1e-5 of max |mel| of
+    the numpy mel (two f32 FFTs' rounding, amplified by the log in quiet
+    bins)."""
+
+    def __init__(self, filters: np.ndarray, backend: str = "numpy", device=None):
+        if backend == "native":
             raise NotImplementedError(
-                f"mel backend {backend!r}: only the numpy mel is ported")
+                "mel backend 'native' (the JAX package's C helper) is not ported")
+        if backend not in ("numpy", "torch"):
+            raise ValueError(f"unknown mel backend {backend!r}")
         self.backend = backend
         self.np_filters = np.asarray(filters, dtype=np.float32)
         self.np_window = hann_window()
+        if backend == "torch":
+            from ..runtime.context import resolve_device
+
+            self.device = resolve_device(device)
+            self.filters = torch.from_numpy(self.np_filters).to(self.device)
+            self.window = torch.from_numpy(self.np_window).to(self.device)
         self.n_mel = int(filters.shape[0])
 
     def __call__(self, samples: np.ndarray) -> Tuple[np.ndarray, int]:
         """Returns (mel[n_mel, n_len] float32 numpy, n_len_org)."""
         n_len, n_len_org = mel_frame_counts(len(samples))
         padded = pad_audio(np.asarray(samples, dtype=np.float32))
+        if self.backend == "torch":
+            from ..decoding.graphs import DEVICE_LOCK, full_f32
+
+            with DEVICE_LOCK, full_f32():
+                mel = _log_mel_torch(torch.from_numpy(padded).to(self.device),
+                                     self.filters, self.window, n_len)
+                return mel.cpu().numpy(), n_len_org
         return _log_mel_numpy(padded, self.np_filters, self.np_window, n_len), n_len_org

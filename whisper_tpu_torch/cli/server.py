@@ -21,8 +21,9 @@ into natively batched device calls (runtime/batching.py), where the
 reference's whisper_mutex serializes whole requests (server.cpp:1219).
 `-p/--processors` also chunk-splits each request, the
 whisper_full_parallel role (server.cpp:211,990), the chunks joining the
-same batcher.  VAD is not ported: `-vm` exits with an error, and a
-request with vad=true gets the NotImplementedError of `transcribe`.
+same batcher.  `-vm FILE` names the Silero VAD model that requests with
+vad=true run on the card before their window loop (the request's vad_*
+fields set its parameters).
 """
 
 from __future__ import annotations
@@ -479,8 +480,7 @@ def main(argv=None) -> int:
     ap.add_argument("--request-path", default="")
     ap.add_argument("--inference-path", default="/inference")
     ap.add_argument("-l", "--language", default="en")
-    ap.add_argument("-vm", "--vad-model", default=None,
-                    help="not ported: exits with an error")
+    ap.add_argument("-vm", "--vad-model", default=None)
     ap.add_argument("-p", "--processors", type=int, default=1,
                     help="chunk-split each request across N parallel decode "
                          "states (whisper_full_parallel role, "
@@ -488,12 +488,10 @@ def main(argv=None) -> int:
     ap.add_argument("-ng", "--no-gpu", action="store_true",
                     help="run on the CPU (the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.vad_model:
-        print("error: not ported to whisper_tpu_torch yet: -vm (VAD)",
-              file=sys.stderr)
-        return 2
 
     defaults = {"language": args.language}
+    if args.vad_model:
+        defaults["vad_model_path"] = args.vad_model
     httpd = serve(args.model, args.host, args.port, args.request_path,
                   args.inference_path, defaults,
                   n_processors=args.processors,

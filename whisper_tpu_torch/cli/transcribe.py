@@ -10,9 +10,11 @@ use_gpu=false) runs the plain PyTorch path on the CPU.  -nfa turns the
 flash route off and sets WTPU_ENC_ATTN and WTPU_DECODE_ATTN to `xla`, so
 the encoder and a q8 cache take the plain graphs, as in the JAX package.
 -p N splits each file into N chunks whose window decodes batch natively
-on the card (decoding/parallel.py, runtime/batching.py).  Flags whose
-modules are not ported yet (-vad, --grammar, -dtw, --precision
-ggml_cpu_f16) exit with an error and a non-zero code.
+on the card (decoding/parallel.py, runtime/batching.py).  -vad -vm FILE
+runs the Silero VAD on the card before the window loop, and -dtw PRESET
+(or top:N) the DTW token timestamps after each window.  Flags whose
+modules are not ported yet (--grammar, --precision ggml_cpu_f16) exit with
+an error and a non-zero code.
 """
 
 from __future__ import annotations
@@ -152,9 +154,7 @@ def _print_segment(seg, args, vocab, stereo):
 def _unported(args) -> List[str]:
     """The flags whose modules are not ported to whisper_tpu_torch yet."""
     return [flag for flag, on in (
-        ("-vad", args.vad),
         ("--grammar", bool(args.grammar)),
-        ("-dtw", bool(args.dtw)),
         ("--precision ggml_cpu_f16", args.precision == "ggml_cpu_f16"),
     ) if on]
 
@@ -194,6 +194,11 @@ def run(argv: Optional[List[str]] = None) -> int:
                                       kv_itype=args.kv_itype,
                                       cross_itype=args.cross_kv_itype,
                                       precision=args.precision or None)
+    if args.dtw:
+        if args.dtw.startswith("top:"):
+            ctx.enable_dtw(n_top_most=int(args.dtw[4:]))
+        else:
+            ctx.enable_dtw(args.dtw)
     if args.detect_language:
         args.language = "auto"
     if (args.language not in ("auto",) and

@@ -9,9 +9,11 @@ no-speech) and segment emission with timestamp-token splitting.
 
 Every decoder rule stays on the host; the tensor work runs in
 :class:`WhisperContext`.  Beam state lives in a dense [beam] axis;
-reshuffling is a device-side gather (KVCache.reorder).  Not ported yet, and
-refused with NotImplementedError rather than routed elsewhere: VAD,
-grammars and DTW token timestamps.
+reshuffling is a device-side gather (KVCache.reorder).  Before the window
+loop `transcribe` runs the Silero VAD prefilter (models/vad/pipeline.py)
+when asked, and after each window the DTW token timestamps
+(decoding/dtw.py) when the context enabled them.  Not ported yet, and
+refused with NotImplementedError rather than routed elsewhere: grammars.
 """
 
 from __future__ import annotations
@@ -101,14 +103,9 @@ def _tile_cache(cache, n_beam: int):
 
 
 def _refuse_unported(params: TranscribeParams) -> None:
-    unported = {
-        "vad": params.vad,
-        "grammar_rules": params.grammar_rules is not None,
-    }
-    names = [k for k, on in unported.items() if on]
-    if names:
+    if params.grammar_rules is not None:
         raise NotImplementedError(
-            f"not ported to whisper_tpu_torch yet: {', '.join(names)}")
+            "not ported to whisper_tpu_torch yet: grammar_rules")
 
 
 def transcribe(ctx: WhisperContext, params: TranscribeParams,
@@ -116,9 +113,22 @@ def transcribe(ctx: WhisperContext, params: TranscribeParams,
     """whisper_full (src/whisper.cpp:7788-7810): optional VAD prefilter, then
     the windowed decode loop.  Returns the segment list."""
     _refuse_unported(params)
-    ctx.vad_mapping = None
-    ctx.vad_segments_used = []
-    return full_with_state(ctx, params, samples)
+    if params.vad:
+        from ..models.vad.pipeline import filter_speech
+
+        filtered = filter_speech(ctx, params, samples)
+        if filtered is None:
+            return []
+        samples, ctx.vad_mapping, ctx.vad_segments_used = filtered
+    else:
+        ctx.vad_mapping = None
+        ctx.vad_segments_used = []
+    segments = full_with_state(ctx, params, samples)
+    if ctx.vad_mapping is not None:
+        from ..models.vad.pipeline import remap_segment_times
+
+        remap_segment_times(segments, ctx.vad_mapping)
+    return segments
 
 
 def full_with_state(ctx: WhisperContext, params: TranscribeParams,
@@ -583,6 +593,8 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
         if not is_no_speech:
             prompt_past1 = prompt_past1 + [t.id for t in tokens_cur[:result_len]]
 
+        n_segments_before_window = len(result_all)
+
         if tokens_cur and not ctx.is_empty and not is_no_speech:
             i0 = 0
             t0 = seek + 2 * (tokens_cur[0].tid - vocab.token_beg)
@@ -623,6 +635,17 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                               tokens_cur[i0:], speaker_turn_next)
                 result_all.append(seg)
                 _post_segment(ctx, params, result_all, seek)
+
+        # [EXPERIMENTAL] DTW token-level timestamps for this window's
+        # segments (src/whisper.cpp:7749-7762)
+        n_seg_new = len(result_all) - n_segments_before_window
+        if ctx.dtw_token_timestamps and n_seg_new:
+            from .dtw import compute_token_level_timestamps_dtw
+
+            n_frames = min(CHUNK_SIZE * 100, seek_delta, seek_end - seek)
+            compute_token_level_timestamps_dtw(
+                ctx, params, result_all, len(result_all) - n_seg_new,
+                n_seg_new, seek, n_frames, medfilt_width=7)
 
         # single-timestamp ending: skip the whole chunk (PR 2629)
         max_tokens_ts_ending = (params.max_tokens > 0 and not params.single_segment

@@ -17,11 +17,12 @@ PyTorch's default "global" mode fails if another thread reads the card or
 grows the allocator meanwhile; and a capture's count deltas would take in
 another thread's launches.  So every piece of the port's device work holds
 this one process-wide lock (runtime/context.py, the window decoders,
-decoding/full.py's host loop): its launches all go to the current stream
-in order, a capture (and its warm-up on a side stream, fenced on both
-sides) sees no other thread's work, and the counts move under the lock.
-The host work of a request (audio, mel, logit filters, segments) runs
-outside it, in parallel.
+decoding/full.py's host loop, the VAD, the device mel, the DTW pass): its
+launches all go to the current stream in order, a capture (and its
+warm-up on a side stream, fenced on both sides) sees no other thread's
+work, and the counts move under the lock.
+The host work of a request (audio, the numpy mel, logit filters,
+segments, DTW's alignment search) runs outside it, in parallel.
 
 A fourth: CUDA refuses to destroy a graph while another one is being
 captured, and the capture fails with it.  A window decoder sits in a
@@ -29,10 +30,16 @@ reference cycle, so Python's cycle collector can drop it, and its graphs,
 at any allocation in any thread, a capture's included.  So a CountedGraph
 that goes away leaves its graph in _RETIRED, and the next capture destroys
 the retired graphs, holding the lock, before it begins.
+
+full_f32: the VAD and the device mel compute in IEEE f32 whatever the
+caller's TF32 flags (PyTorch's cuDNN convolutions default to TF32 on
+Hopper).  The flags are process-wide, so they change only under
+DEVICE_LOCK, where no other thread of the port launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -44,6 +51,19 @@ COUNTED = (qmm.qmmt_fused, qmm.qmmt, qmm.qmm, decode_attn.self_attend_q8,
 
 DEVICE_LOCK = threading.RLock()
 _RETIRED = []     # graphs of dropped CountedGraphs, destroyed by the next capture
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Inside, f32 matmuls and cuDNN convolutions run without TF32; the
+    caller's flags come back on exit.  Hold DEVICE_LOCK around it."""
+    mm, conv = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = conv
 
 
 class CountedGraph:

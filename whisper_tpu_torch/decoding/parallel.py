@@ -6,10 +6,10 @@ into `n_processors` equal chunks, each transcribed with its own decode
 state against the shared model, and segments are merged with timestamp
 offset fix-up and a non-overlap clamp.  By default the chunks run in
 worker threads whose window decodes batch natively on the card
-(runtime/batching.py); `batched=False` runs them one after another.
-
-VAD is not ported: `params.vad` raises NotImplementedError, as
-`transcribe` does.
+(runtime/batching.py); `batched=False` runs them one after another.  With
+`params.vad` the whole audio is VAD-filtered first, the filtered samples
+are chunked, and the merged segments' times are mapped back to the
+original audio (`_remap_vad`).
 """
 
 from __future__ import annotations
@@ -41,9 +41,22 @@ def transcribe_parallel(ctx, params: TranscribeParams, samples: np.ndarray,
 
     vad_mapping = None
     if params.vad:
-        # the JAX package VADs the whole audio here, chunks the filtered
-        # samples and remaps the merged times (_remap_vad)
-        raise NotImplementedError("VAD is not ported to whisper_tpu_torch yet")
+        from ..models.vad.pipeline import filter_speech
+
+        filtered = filter_speech(ctx, params, samples)
+        if filtered is None:
+            return []
+        samples, vad_mapping, ctx.vad_segments_used = filtered
+        # The reference VADs the WHOLE audio up front, chunks the filtered
+        # samples, merges worker segments with filtered-time chunk offsets,
+        # and the public accessors then remap the merged t0/t1 through the
+        # PARENT state's mapping table (whisper_full_parallel:7824 ->
+        # whisper_vad fills ctx->state->vad_mapping_table;
+        # whisper_full_get_segment_t0/t1:7999-8035) — so the remap applies
+        # after the merge below.  (The reference workers also re-run VAD on
+        # their already-filtered chunks — params_cur.vad is never cleared —
+        # which is a no-op on speech-only samples; this engine skips the
+        # second pass.)
 
     # lockstep continuous batching: the chunks' windows decode together
     # (runtime/batching.py) whenever the device loop covers the requested
@@ -103,10 +116,18 @@ def transcribe_parallel(ctx, params: TranscribeParams, samples: np.ndarray,
 def _remap_vad(segments, table):
     """Filtered-time -> original-time remap of the MERGED segments
     (whisper_full_get_segment_t0/t1 applied after whisper_full_parallel's
-    chunk-offset fix-up, src/whisper.cpp:7890-7894 + :7999-8035).  Only a
-    VAD run makes a table, and VAD is not ported."""
+    chunk-offset fix-up, src/whisper.cpp:7890-7894 + :7999-8035).
+
+    The remap must run AFTER the whole merge, like the reference's read-time
+    accessors: the mapping table is sorted by processed time but its
+    original times can step backward across entries (speech-pad overlap),
+    so the non-overlap clamp compares filtered-time values.  Mid-merge
+    new_segment_callbacks therefore see filtered-time stamps, as in the
+    JAX package."""
     if table:
-        raise NotImplementedError("VAD is not ported to whisper_tpu_torch yet")
+        from ..models.vad.pipeline import remap_segment_times
+
+        remap_segment_times(segments, table)
     return segments
 
 

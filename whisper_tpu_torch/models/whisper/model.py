@@ -276,9 +276,12 @@ def compute_cross_kv(params: Dict[str, Any], enc_out: torch.Tensor,
     return xk, xv
 
 
-def cross_attend(qh: torch.Tensor, ck, cv, dtype, group: int = 1) -> torch.Tensor:
+def cross_attend(qh: torch.Tensor, ck, cv, dtype, group: int = 1,
+                 return_probs: bool = False):
     """Cross-attention of qh (..., H, Tq, d) against dense (..., H, Tc, d)
-    or XK8 planes; every encoder position is visible.
+    or XK8 planes; every encoder position is visible.  return_probs: also
+    the softmax weights (..., H, Tq, Tc), for DTW (decoding/dtw.py; one
+    window, group 1).
 
     group > 1: qh is (W * group, H, Tq, d), rows window-major, and ck/cv
     hold one plane per window, (W, H, Tc, d).  A window's lanes share its
@@ -295,9 +298,12 @@ def cross_attend(qh: torch.Tensor, ck, cv, dtype, group: int = 1) -> torch.Tenso
         scores = matmul_f32(qh, ck.codes.transpose(-1, -2), dtype)
         scores = scores * ck.scale.unsqueeze(-2) * scale
         probs = torch.softmax(scores, dim=-1)
-        return matmul_f32(probs * cv.scale.unsqueeze(-2), cv.codes, dtype)
-    scores = matmul_f32(qh, ck.transpose(-1, -2), dtype) * scale
-    return matmul_f32(torch.softmax(scores, dim=-1), cv, dtype)
+        out = matmul_f32(probs * cv.scale.unsqueeze(-2), cv.codes, dtype)
+    else:
+        scores = matmul_f32(qh, ck.transpose(-1, -2), dtype) * scale
+        probs = torch.softmax(scores, dim=-1)
+        out = matmul_f32(probs, cv, dtype)
+    return (out, probs) if return_probs else out
 
 
 # ---------------------------------------------------------------------------

@@ -236,7 +236,7 @@ def transcribe_batched(ctx, params, samples: np.ndarray, n_processors: int,
             raise e
 
     # merge with offset fix-up + non-overlap clamp (src/whisper.cpp:7900-7933);
-    # a VAD mapping would be applied after the whole merge (parallel._remap_vad)
+    # a VAD mapping is applied after the whole merge (parallel._remap_vad)
     all_segments = list(results[0] or [])
     offset_t = params.offset_ms // 10
     for i in range(1, n_processors):

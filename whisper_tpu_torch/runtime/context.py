@@ -43,11 +43,13 @@ _MATMUL_KEYS = {"qkv_w", "o_w", "mlp0_w", "mlp1_w", "xq_w", "xk_w", "xv_w",
 
 @dataclass
 class ContextTimings(Timings):
-    """The phase timers, and the window loop's CUDA-graph captures (kept
-    out of t_decode_us)."""
+    """The phase timers, the window loop's CUDA-graph captures (kept out of
+    t_decode_us), and the DTW passes (decoding/dtw.py, one per window)."""
 
     t_capture_us: int = 0
     n_capture: int = 0
+    t_dtw_us: int = 0
+    n_dtw: int = 0
 
 
 def _bucket(n: int) -> int:
@@ -81,7 +83,8 @@ def _cast_matmul_weights(tree, dtype):
 class WhisperContext:
     def __init__(self, model: WhisperModel, device=None, compute_dtype=None,
                  use_packed_weights=None, kv_itype: str = "f16",
-                 cross_itype: str = "f16", precision: Optional[str] = None):
+                 cross_itype: str = "f16", precision: Optional[str] = None,
+                 mel_backend: str = "auto"):
         if precision == "ggml_cpu_f16":
             raise NotImplementedError(
                 "precision='ggml_cpu_f16' (ggml-CPU parity mode) is not ported")
@@ -119,7 +122,14 @@ class WhisperContext:
             if self.params is not None and self.compute_dtype != torch.float32:
                 self.params = _cast_matmul_weights(self.params, self.compute_dtype)
 
-        self.mel_fn = LogMel(model.filters.data)
+        # mel backend: "auto" runs the batched-rfft device mel on the card
+        # (FFT rounding ~1e-6 relative from the reference-exact numpy path)
+        # and the numpy mel on the CPU, as the JAX package takes its device
+        # mel only on the TPU
+        if mel_backend == "auto":
+            mel_backend = "torch" if on_card else "numpy"
+        self.mel_fn = LogMel(model.filters.data, backend=mel_backend,
+                             device=self.device)
         self.timings = ContextTimings()
         self.filter_tables: Optional[LogitFilterTables] = None  # set per window
         self.mel: Optional[np.ndarray] = None       # (n_mel, n_len)
@@ -129,13 +139,29 @@ class WhisperContext:
         self.xk = None
         self.xv = None
         self._window_fns: Dict[Tuple, object] = {}
+        # [EXPERIMENTAL] DTW token-level timestamps
+        # (whisper_context_params.dtw_*, include/whisper.h:116-129)
+        self.dtw_token_timestamps = False
+        self.dtw_aheads: Optional[list] = None
         # a WindowBatcher (runtime/batching.py) that window decodes join;
         # None: each runs at once
         self.batcher = None
 
-    def enable_dtw(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "DTW token timestamps are not ported to whisper_tpu_torch")
+    def enable_dtw(self, preset: str = "auto", n_top_most: int = 0,
+                   custom=None) -> None:
+        """Select alignment heads and enable DTW timestamps
+        (aheads_masks_init, src/whisper.cpp:1160-1283)."""
+        from ..decoding.dtw import resolve_aheads
+
+        if preset == "auto":
+            preset = self.hp.model_name
+            if not self.vocab.is_multilingual:
+                preset += ".en"
+        # the reference CLI spells these with dots (cli.cpp:190-213)
+        preset = preset.replace("large.v", "large-v").replace(
+            "large-v3.turbo", "large-v3-turbo")
+        self.dtw_aheads = resolve_aheads(self.hp, preset, n_top_most, custom)
+        self.dtw_token_timestamps = True
 
     def _install_packed(self, overlay) -> None:
         dev = self.device
