@@ -43,7 +43,18 @@ Phases (any failure exits non-zero; nothing is caught):
      its filter keeps; the device mel against the numpy mel, and each
      one's time; the whisper-cli on the turbo file with -vad and
      -dtw large.v3.turbo (VAD segments in the clip's time, each window's
-     t_dtw, K2 launched by the DTW passes).
+     t_dtw, K2 launched by the DTW passes);
+  8. Parakeet-TDT, the second model family: a full-width ParakeetHParams()
+     file written from seed 0 (f16) and quantized to q5_0 by the port's
+     parakeet-quantize; `ParakeetContext.full()` on 40 s (packed weights,
+     the device mel, the TDT loop as CUDA graphs of 8 steps; five timed
+     runs after a warm-up, mel/encode/decode times, the loop's steps,
+     replays and flag reads, tokens, peak memory, no K1-K6 launch); the
+     encode packed against dense; the loop's graphs against its eager
+     step bit for bit; `full_batch` of 4 clips against the same 4 through
+     `full()`; one 700 s clip on the local-attention path; the port's
+     parakeet-cli with -otxt and with --batch; a small decisive Parakeet
+     on the card against the CPU.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -1701,6 +1712,326 @@ def run_cli_vad_dtw(W, TC, DTW, counters, model_path: str, wav: str, vad_path: s
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Parakeet-TDT
+# ---------------------------------------------------------------------------
+
+PARAKEET_CLIP_S = 40.0
+PARAKEET_LONG_S = 700.0     # ~8750 frames: past LOCAL_ATTN_THRESHOLD (8192)
+PARAKEET_REPEATS = 5
+# the card-vs-CPU model: three layers at narrow widths, its joint's output
+# weights scaled up so that every argmax is decisive
+SMALL_PARAKEET = dict(n_vocab=64, n_audio_state=128, n_audio_head=4, n_audio_layer=3,
+                      n_subsampling_channels=32, n_pred_dim=128)
+SMALL_JOINT_SCALE = 8.0
+
+
+def parakeet_vocab(n: int) -> list:
+    """n SentencePiece-like pieces: the control tokens, then word starts
+    ("▁" + piece) and continuations."""
+    return [b"<unk>", b"<s>", b"</s>"] + [
+        (("▁" if i % 3 == 0 else "") + f"p{i}").encode() for i in range(n - 3)]
+
+
+def write_parakeet(path: str, hp, seed: int, use_f16: bool, joint_scale: float = 1.0) -> None:
+    """A Parakeet ggml file of seeded weights at `hp`'s widths
+    (`synth_parakeet_tensors`), with two changes that keep the frames
+    apart: the stem's biases are zeroed (with them its output barely moves
+    from frame to frame), and each conformer block's four residual
+    branches end in output weights scaled by 0.1 (24 random blocks at full
+    scale wash the input out, and one token wins every frame)."""
+    from whisper_tpu_torch.models.parakeet.writer import (synth_parakeet_tensors,
+                                                          write_parakeet_model)
+
+    rng = np.random.default_rng(seed)
+    filters = (rng.random((hp.n_mels, hp.n_fft // 2 + 1)) * 0.01).astype(np.float32)
+    window = np.hanning(min(400, hp.n_fft)).astype(np.float32)
+    tensors = synth_parakeet_tensors(hp, seed=seed)
+    for name in [f"encoder.pre_encode.conv.{i}.bias" for i in (0, 2, 3, 5, 6)] + [
+            "encoder.pre_encode.out.bias"]:
+        tensors[name][...] = 0.0
+    for i in range(hp.n_audio_layer):
+        for name in ("feed_forward1.linear2", "feed_forward2.linear2",
+                     "self_attn.linear_out", "conv.pointwise_conv2"):
+            tensors[f"encoder.layers.{i}.{name}.weight"] *= 0.1
+    tensors["joint.joint_net.2.weight"] *= joint_scale
+    write_parakeet_model(path, hp, filters, window, parakeet_vocab(hp.n_vocab), tensors,
+                         use_f16=use_f16)
+
+
+def _seg_key(segs) -> list:
+    return [(s.text, [(t.id, t.frame_index, t.duration_idx) for t in s.tokens]) for s in segs]
+
+
+def parakeet_full_runs(ctx, counters, pcm: np.ndarray) -> None:
+    """`full()` on the 40 s clip: one warm-up (it captures the TDT loop's
+    graph), then PARAKEET_REPEATS timed runs with every launch count and the
+    loop's counters set to 0 just before them; what comes out checked."""
+    from whisper_tpu_torch.models.parakeet.hparams import LOCAL_ATTN_THRESHOLD
+
+    hp, loop = ctx.hp, ctx.decoder.loop
+    assert ctx.full(pcm) == 0
+    for fn in counters:
+        fn.launches = 0
+    loop.runs = loop.replays = loop.flag_reads = loop.steps = 0
+    graphs = loop.graphs
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    walls, mel, enc, dec, first = [], [], [], [], None
+    for _ in range(PARAKEET_REPEATS):
+        ctx.t_mel_us = ctx.t_encode_us = ctx.t_decode_us = 0
+        t0 = time.perf_counter()
+        assert ctx.full(pcm) == 0
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        mel.append(ctx.t_mel_us)
+        enc.append(ctx.t_encode_us)
+        dec.append(ctx.t_decode_us)
+        key = _seg_key(ctx.result_all)
+        assert first is None or key == first
+        first = key
+    launches = {fn.__name__: fn.launches for fn in counters}
+    toks = ctx.decoded_token_data
+    n_frames = -(-ctx.n_len_org // hp.subsampling_factor)
+    med = lambda a: float(np.median(a))
+    log(f"  full() 40 s: wall_s median={med(walls):.4f} min={min(walls):.4f} "
+        f"max={max(walls):.4f} runs={len(walls)} all={[round(w, 4) for w in walls]}")
+    log(f"  t_mel_us median={int(med(mel))} t_encode_us median={int(med(enc))} "
+        f"(min {min(enc)} max {max(enc)}) t_decode_us median={int(med(dec))} "
+        f"(min {min(dec)} max {max(dec)})")
+    log(f"  tdt loop per run: steps={loop.steps // PARAKEET_REPEATS} "
+        f"replays={loop.replays // PARAKEET_REPEATS} "
+        f"flag_reads={loop.flag_reads // PARAKEET_REPEATS} graphs_captured_in_runs="
+        f"{loop.graphs - graphs} frames={n_frames} emitted_tokens={len(toks)} "
+        f"decode_us_per_step={med(dec) / (loop.steps / PARAKEET_REPEATS):.2f} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+        f"peak_above_start={torch.cuda.max_memory_allocated() - base}")
+    log(f"  text[:120]={ctx.full_text()[:120]!r}")
+    log(f"  launches={json.dumps(launches)} (the Parakeet path reaches none of K1-K6)")
+    assert not any(launches.values()) and loop.graphs == graphs
+    # right by the repo's own means: tokens in the vocabulary, frames in
+    # order inside the audio, durations from the table, p a probability,
+    # and a finite encoder output of (frames, n_state)
+    assert toks and n_frames <= LOCAL_ATTN_THRESHOLD
+    assert all(0 <= t.id < hp.n_vocab for t in toks)
+    frames = [t.frame_index for t in toks]
+    assert frames == sorted(frames) and frames[-1] < n_frames
+    assert all(t.duration_value in hp.tdt_durations and 0.0 <= t.p <= 1.0 for t in toks)
+    assert loop.flag_reads == loop.replays and loop.runs == PARAKEET_REPEATS
+    ctx.encode_only()
+    assert ctx._cached_enc.shape == (n_frames, hp.n_audio_state)
+    assert torch.isfinite(ctx._cached_enc).all()
+
+
+def _enc_ms(ctx, mel: np.ndarray) -> float:
+    t0 = time.perf_counter()
+    ctx._encode(mel[None], mel.shape[0])
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def parakeet_packed_vs_dense(ctx, model) -> None:
+    """The 40 s encode with packed q5_0 conformer weights (dequantized at
+    every call) against the same weights dense, in turns."""
+    from whisper_tpu_torch.models.parakeet.context import ParakeetContext
+
+    dense = ParakeetContext(model, use_packed_weights=False)
+    mel = ctx.mel
+    ms = {"packed": [], "dense": []}
+    for c in (ctx, dense):
+        _enc_ms(c, mel)
+    for order in (("packed", "dense"), ("dense", "packed")) * 3:
+        for name in order:
+            ms[name].append(_enc_ms(ctx if name == "packed" else dense, mel))
+    a = ctx._encode(mel[None], mel.shape[0])
+    b = dense._encode(mel[None], mel.shape[0])
+    rel = float((a - b).abs().max() / b.abs().max())
+    for name, v in ms.items():
+        log(f"  encode 40 s [{name}]: ms median={float(np.median(v)):.3f} "
+            f"min={min(v):.3f} max={max(v):.3f} runs={len(v)}")
+    log(f"  packed vs dense encoder output: max_rel_err={rel:.3e} tol=1e-04")
+    assert rel <= 1e-4
+
+
+def parakeet_graphs_vs_eager(ctx) -> None:
+    """The TDT loop on the 40 s clip's frames as graph replays and as the
+    eager step: every output equal bit for bit."""
+    from whisper_tpu_torch.models.parakeet.decode import max_out_for
+
+    hp, loop = ctx.hp, ctx.decoder.loop
+    enc = ctx._encode(ctx.mel[None], ctx.n_len_org)
+    n = -(-ctx.n_len_org // hp.subsampling_factor)
+    z = torch.zeros((1, hp.n_pred_layers, hp.n_pred_dim), device=enc.device)
+    out, ms, steps = {}, {}, {}
+    for eager in (False, True):
+        s0 = loop.steps
+        t0 = time.perf_counter()
+        out[eager] = loop.run(enc, [n], z, z, [max_out_for(n, hp)], eager=eager)
+        ms[eager] = 1e3 * (time.perf_counter() - t0)
+        steps[eager] = loop.steps - s0
+    same = all(np.array_equal(x, y) for x, y in zip(out[False][:7], out[True][:7]))
+    same = same and all(torch.equal(x, y) for x, y in zip(out[False][7:9], out[True][7:9]))
+    log(f"  tdt loop graphs vs eager: identical={same} tokens={int(out[False][6][0])} "
+        f"graphs_ms={ms[False]:.3f} eager_ms={ms[True]:.3f} steps={steps[False]} "
+        f"graphs_us_per_step={1e3 * ms[False] / steps[False]:.2f} "
+        f"eager_us_per_step={1e3 * ms[True] / steps[True]:.2f}")
+    assert same and steps[False] == steps[True]
+
+
+def parakeet_batch_vs_sequential(ctx, clips) -> None:
+    """full_batch on the clips against the same clips one by one through
+    full() on a fork of the context with exact_shapes=False (the same padded
+    mel bucket): equal segments, and the wall of each."""
+    seq = ctx.fork_state()
+    seq.exact_shapes = False
+    ctx.full_batch(clips)                       # captures the rows' graph
+    t0 = time.perf_counter()
+    batch = ctx.full_batch(clips)
+    t_batch = time.perf_counter() - t0
+    walls, segs = [], []
+    for c in clips:
+        t0 = time.perf_counter()
+        assert seq.full(c) == 0
+        walls.append(time.perf_counter() - t0)
+        segs.append(list(seq.result_all))
+    same = [_seg_key(a) == _seg_key(b) for a, b in zip(batch, segs)]
+    log(f"  full_batch x{len(clips)} wall_s={t_batch:.4f}; sequential full() "
+        f"wall_s={sum(walls):.4f} each={[round(w, 4) for w in walls]}; equal segments={same} "
+        f"tokens={[sum(len(s.tokens) for s in b) for b in batch]}")
+    assert all(same) and all(batch)
+
+
+def parakeet_long(ctx) -> None:
+    """700 s in one full(): the encoder takes the local attention path."""
+    from whisper_tpu_torch.models.parakeet.hparams import LOCAL_ATTN_THRESHOLD
+
+    pcm = seeded_audio(PARAKEET_LONG_S, seed=2)
+    ctx.t_mel_us = ctx.t_encode_us = ctx.t_decode_us = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    assert ctx.full(pcm) == 0
+    wall = time.perf_counter() - t0
+    n_frames = -(-ctx.n_len_org // ctx.hp.subsampling_factor)
+    log(f"  full() {PARAKEET_LONG_S:.0f} s: frames={n_frames} (local attention past "
+        f"{LOCAL_ATTN_THRESHOLD}) wall_s={wall:.3f} t_mel_us={ctx.t_mel_us} "
+        f"t_encode_us={ctx.t_encode_us} t_decode_us={ctx.t_decode_us} "
+        f"tokens={len(ctx.decoded_token_data)} max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated()} peak_above_start="
+        f"{torch.cuda.max_memory_allocated() - base}")
+    assert n_frames > LOCAL_ATTN_THRESHOLD and ctx.decoded_token_data
+    assert ctx.decoded_token_data[-1].frame_index < n_frames
+
+
+def parakeet_cli(ctx, model_path: str, tmp: str, clips) -> None:
+    """The port's parakeet-cli on the card: -otxt on one wav, then --batch
+    on two; each text file equal to the context's own transcript of the
+    same (int16-rounded) samples."""
+    import io
+
+    from whisper_tpu_torch.audio.io import load_audio, write_wav
+    from whisper_tpu_torch.cli import parakeet_cli as PC
+
+    wavs = []
+    for i, c in enumerate(clips[:2]):
+        wavs.append(os.path.join(tmp, f"parakeet-{i}.wav"))
+        write_wav(wavs[-1], c)
+    pcms = [load_audio(w)[0] for w in wavs]
+    base = os.path.join(tmp, "parakeet-single")
+    for argv in (["-m", model_path, "-f", wavs[0], "-otxt", "-of", base, "-np"],
+                 ["-m", model_path, "--batch", "-otxt", "-np", *wavs]):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = PC.main(argv)
+        log(f"  parakeet-cli {' '.join(a for a in argv if a.startswith('-'))}: rc={rc} "
+            f"wall_s={time.perf_counter() - t0:.3f} stdout[:80]={out.getvalue()[:80]!r}")
+        assert rc == 0
+    assert ctx.full(pcms[0]) == 0
+    assert Path(base + ".txt").read_text() == ctx.full_text() + "\n"
+    want = ["".join(s.text for s in segs) + "\n" for segs in ctx.full_batch(pcms)]
+    got = [Path(w + ".txt").read_text() for w in wavs]
+    log(f"  parakeet-cli text files equal the context's: single=True batch={got == want}")
+    assert got == want
+
+
+def parakeet_card_matches_cpu(tmp: str) -> None:
+    """A small Parakeet (SMALL_PARAKEET, decisive joint) on the card against
+    the CPU on 20 s: equal tokens, frames and durations; encoder output
+    within 1e-4 of its max |value|; every emitted row's joint margins far
+    above the card-CPU difference of those logits."""
+    from whisper_tpu_torch.models.parakeet.context import ParakeetContext
+    from whisper_tpu_torch.models.parakeet.hparams import ParakeetHParams
+
+    hp = ParakeetHParams(**SMALL_PARAKEET)
+    path = os.path.join(tmp, "parakeet-small.bin")
+    write_parakeet(path, hp, seed=3, use_f16=False, joint_scale=SMALL_JOINT_SCALE)
+    pcm = seeded_audio(20.0, seed=4)
+    card = ParakeetContext.from_file(path)
+    cpu = ParakeetContext.from_file(path, device="cpu")
+    for c in (card, cpu):
+        c.capture_logits = True
+        assert c.full(pcm) == 0
+    key = lambda c: [(t.id, t.frame_index, t.duration_idx, t.duration_value)
+                     for t in c.decoded_token_data]
+    enc_card = card._encode(cpu.mel[None], cpu.n_len_org).cpu()
+    enc_cpu = cpu._encode(cpu.mel[None], cpu.n_len_org)
+    rel = float((enc_card - enc_cpu).abs().max() / enc_cpu.abs().max())
+    nv = hp.n_vocab + 1
+    lg = cpu.last_logits
+    top2 = lambda a: np.sort(a, axis=1)[:, -1] - np.sort(a, axis=1)[:, -2]
+    margin = float(min(top2(lg[:, :nv]).min(), top2(lg[:, nv:]).min()))
+    assert key(card) == key(cpu)
+    diff = float(np.abs(card.last_logits - lg).max())
+    log(f"  small parakeet card vs cpu: tokens={len(key(cpu))} identical={key(card) == key(cpu)} "
+        f"encoder max_rel_err={rel:.3e} tol=1e-04 min_joint_margin={margin:.4f} "
+        f"max_logit_diff={diff}")
+    assert len(key(cpu)) > 5 and len({t[0] for t in key(cpu)}) > 2
+    assert rel <= 1e-4 and margin > 100 * diff
+
+
+def check_parakeet(counters, tmp: str, t_start: float) -> None:
+    """Phase 8: a full-width ParakeetHParams() file from seed 0 (f16, then
+    q5_0 through the port's parakeet-quantize) on the card."""
+    from whisper_tpu_torch.cli import parakeet_quantize as PQ
+    from whisper_tpu_torch.models.parakeet.context import ParakeetContext
+    from whisper_tpu_torch.models.parakeet.hparams import ParakeetHParams
+    from whisper_tpu_torch.models.parakeet.load import load_parakeet_model
+
+    t_phase = time.perf_counter()
+    hp = ParakeetHParams()
+    f16 = os.path.join(tmp, "parakeet-f16.bin")
+    path = os.path.join(tmp, "parakeet-q5_0.bin")
+    t0 = time.perf_counter()
+    write_parakeet(f16, hp, seed=0, use_f16=True)
+    t_synth = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assert PQ.main([f16, path, "q5_0", "-q"]) == 0
+    t_quant = time.perf_counter() - t0
+    os.remove(f16)
+    t0 = time.perf_counter()
+    model = load_parakeet_model(path)
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = ParakeetContext(model)
+    torch.cuda.synchronize()
+    t_ctx = time.perf_counter() - t0
+    log(f"  synth_f16_s={t_synth:.1f} quantize_q5_0_s={t_quant:.1f} read_s={t_read:.1f} "
+        f"context_s={t_ctx:.1f} bytes={os.path.getsize(path)} device={ctx.device} "
+        f"packed={ctx.use_packed_weights} mel={ctx.mel_backend}")
+    assert ctx.device.type == "cuda" and ctx.use_packed_weights and ctx.mel_backend == "torch"
+    pcm = seeded_audio(PARAKEET_CLIP_S, seed=1)
+    parakeet_full_runs(ctx, counters, pcm)
+    parakeet_packed_vs_dense(ctx, model)
+    parakeet_graphs_vs_eager(ctx)
+    clips = [seeded_audio(PARAKEET_CLIP_S, seed=10 + i) for i in range(4)]
+    parakeet_batch_vs_sequential(ctx, clips)
+    parakeet_long(ctx)
+    parakeet_cli(ctx, path, tmp, clips)
+    del ctx, model
+    parakeet_card_matches_cpu(tmp)
+    log(f"  phase_s={time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -1820,6 +2151,10 @@ def main() -> int:
     write_wav(wav_vad, pcm_vad)
     cli_dtw = run_cli_vad_dtw(W, TC, DTW, counters, path, wav_vad, vad_path, thr, pcm_vad,
                               turbo.name)
+
+    heading("8. Parakeet-TDT: full width, packed q5_0, the TDT loop's graphs, "
+            "batched utterances, 700 s, parakeet-cli, card vs CPU", t_start)
+    check_parakeet(counters, turbo.name, t_start)
     turbo.cleanup()
 
     def entry(name, src, replaces, agg, n_launches):

@@ -36,7 +36,10 @@ VERBATIM = [
     "decoding/tokenizer.py", "decoding/languages.py", "decoding/logits.py",
     "decoding/params.py", "decoding/sampling.py", "decoding/stdrng.py",
     "decoding/timestamps.py", "runtime/timings.py", "audio/io.py",
-    "models/vad/writer.py",
+    "models/vad/writer.py", "models/parakeet/__init__.py",
+    "models/parakeet/hparams.py", "models/parakeet/tokenizer.py",
+    "models/parakeet/writer.py", "models/parakeet/load.py", "formats/requant.py",
+    "cli/parakeet_quantize.py",
 ]
 
 HP = WhisperHParams(n_vocab=51865, n_audio_ctx=64, n_audio_state=64,

@@ -5,7 +5,10 @@ graphs against its eager loop (one window, and W windows batched), the
 batcher's concurrent requests against sequential ones, the slice on the
 card against the slice on the CPU, and the steps before and after the
 window loop (the VAD and the device mel against the CPU, K2 at a DTW
-pass's rows, a VAD + DTW transcribe against the CPU's).  They need a CUDA
+pass's rows, a VAD + DTW transcribe against the CPU's), and Parakeet-TDT
+(the TDT loop's CUDA graphs against its eager loop bit for bit, the card's
+f32 encoder within 1e-4 of max |enc| of the CPU's, its device mel within
+1e-5 of max |mel| of numpy).  They need a CUDA
 card and skip without one (run them on the card with
 `python -m pytest tests/test_torch_gpu.py -m gpu`).
 
@@ -512,3 +515,80 @@ def test_transcribe_vad_dtw_card_matches_cpu(cuda, vad_file, tmp_path_factory):
                     ctx.vad_segments_used, QM.qmmt.launches - n)
     assert out["cuda"][:2] == out["cpu"][:2] and len(out["cuda"][0]) >= 2
     assert out["cuda"][2] > 0 and out["cpu"][2] == 0
+
+
+# Parakeet-TDT: the TDT loop's graphs against its eager loop (one row and a
+# batch of rows that stop on their own), the card's encoder against the
+# CPU's (f32 both; global and local attention), the device mel against numpy
+
+@pytest.fixture(scope="module")
+def parakeet_file(tmp_path_factory):
+    from chip_smoke import SMALL_JOINT_SCALE, SMALL_PARAKEET, write_parakeet
+    from whisper_tpu_torch.models.parakeet.hparams import ParakeetHParams
+
+    path = str(tmp_path_factory.mktemp("parakeet") / "small.bin")
+    write_parakeet(path, ParakeetHParams(**SMALL_PARAKEET), seed=3, use_f16=False,
+                   joint_scale=SMALL_JOINT_SCALE)
+    return path
+
+
+@pytest.mark.parametrize("lens", [[200], [200, 57, 130]])
+def test_parakeet_tdt_graphs_match_eager(cuda, parakeet_file, lens):
+    from whisper_tpu_torch.models.parakeet.context import ParakeetContext
+    from whisper_tpu_torch.models.parakeet.decode import max_out_for
+
+    ctx = ParakeetContext.from_file(parakeet_file)
+    hp, loop = ctx.hp, ctx.decoder.loop
+    B, T = len(lens), max(lens)
+    gen = torch.Generator().manual_seed(B)
+    enc = (3.0 * torch.randn(B, T, hp.n_audio_state, generator=gen)).to(cuda)
+    z = torch.zeros((B, hp.n_pred_layers, hp.n_pred_dim), device=cuda)
+    max_out = [max_out_for(T, hp)] * B
+    graphs = loop.graphs
+    a = loop.run(enc, lens, z, z, max_out)
+    b = loop.run(enc, lens, z, z, max_out, eager=True)
+    c = loop.run(enc, lens, z, z, max_out)
+    assert loop.graphs == graphs + 1
+    for x, y, w in zip(a[:7], b[:7], c[:7]):
+        np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(x, w)
+    for x, y in zip(a[7:9], b[7:9]):
+        assert torch.equal(x, y)
+    assert all(n > 5 for n in a[6])
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_parakeet_encoder_card_matches_cpu(cuda, parakeet_file, local, monkeypatch):
+    from whisper_tpu_torch.models.parakeet import model as PM
+    from whisper_tpu_torch.models.parakeet.context import ParakeetContext
+
+    if local:
+        monkeypatch.setattr(PM, "LOCAL_ATTN_THRESHOLD", 64)
+    cpu = ParakeetContext.from_file(parakeet_file, device="cpu")
+    card = ParakeetContext.from_file(parakeet_file)
+    pcm = (0.1 * np.random.default_rng(6).standard_normal(16000 * 20)).astype(np.float32)
+    cpu.pcm_to_mel(pcm)
+    want = cpu._encode(cpu.mel[None], cpu.n_len_org)
+    got = card._encode(cpu.mel[None], cpu.n_len_org).cpu()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    for c in (cpu, card):
+        assert c.full(pcm) == 0
+    key = lambda c: [(t.id, t.frame_index, t.duration_idx) for t in c.decoded_token_data]
+    assert key(card) == key(cpu) and len(key(cpu)) > 5
+
+
+def test_parakeet_device_mel_matches_numpy(cuda, parakeet_file):
+    from whisper_tpu_torch.models.parakeet.load import load_parakeet_model
+    from whisper_tpu_torch.models.parakeet.mel import (log_mel_spectrogram,
+                                                        log_mel_spectrogram_torch)
+
+    m = load_parakeet_model(parakeet_file)
+    for seconds, seed in ((40.0, 0), (2.137, 1)):
+        pcm = (0.1 * np.random.default_rng(seed).standard_normal(int(16000 * seconds))
+               ).astype(np.float32)
+        ref = log_mel_spectrogram(pcm, m.filters, m.window, m.hparams.n_fft)
+        got = log_mel_spectrogram_torch(pcm, torch.from_numpy(m.filters).to(cuda),
+                                        torch.from_numpy(m.window).to(cuda),
+                                        m.hparams.n_fft).cpu().numpy()
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()

@@ -88,9 +88,26 @@ def test_isolation_no_jax_in_process(model_path):
         import whisper_tpu_torch.models.vad.pipeline
         import whisper_tpu_torch.decoding.dtw
         import whisper_tpu_torch.cli.vad_segments
+        import whisper_tpu_torch.cli.parakeet_cli
+        import whisper_tpu_torch.cli.parakeet_quantize
+        from whisper_tpu_torch.models.parakeet.context import ParakeetContext
+        from whisper_tpu_torch.models.parakeet.hparams import ParakeetHParams
+        from whisper_tpu_torch.models.parakeet.writer import (
+            synth_parakeet_tensors, write_parakeet_model)
         ctx = W.load({model_path!r}, device="cpu")
         pcm = (0.1 * np.random.default_rng(0).standard_normal(16000 * 3)).astype(np.float32)
         W.transcribe(ctx, W.TranscribeParams(temperature_inc=0.0), pcm)
+        hp = ParakeetHParams(n_vocab=8, n_audio_state=16, n_audio_head=2,
+                             n_audio_layer=1, n_mels=16, n_fft=64,
+                             n_subsampling_channels=4, n_conv_kernel=3,
+                             n_pred_dim=16, n_tdt_durations=2,
+                             tdt_durations=(0, 1))
+        pk = {model_path!r} + ".parakeet.bin"
+        write_parakeet_model(pk, hp, np.ones((16, 33), np.float32),
+                             np.hanning(64).astype(np.float32),
+                             [bytes([97 + i]) for i in range(8)],
+                             synth_parakeet_tensors(hp))
+        assert ParakeetContext.from_file(pk, device="cpu").full(pcm) == 0
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "whisper_tpu")]
         print("BAD", bad)
