@@ -54,7 +54,19 @@ Phases (any failure exits non-zero; nothing is caught):
      step bit for bit; `full_batch` of 4 clips against the same 4 through
      `full()`; one 700 s clip on the local-attention path; the port's
      parakeet-cli with -otxt and with --batch; a small decisive Parakeet
-     on the card against the CPU.
+     on the card against the CPU;
+  9. the parity mode (precision="ggml_cpu_f16") and grammars on the turbo
+     file and the 40 s of phase 4: `load(precision="ggml_cpu_f16")` +
+     `transcribe()` (a warm-up and three timed runs: wall, encode ms per
+     window, ms per host-loop step, host filter ms, peak memory, no K1-K6
+     launch); one parity window through the window loop's graphs against
+     its eager loop, bit for bit; the whisper-cli with --precision
+     ggml_cpu_f16, then with -p 2; the whisper-cli with --grammar
+     tests/data/text_parity/script.gbnf --grammar-rule root at its
+     defaults (beam 5), then with --kv-itype q8 (K1 launched, and K3 under
+     q8); and on a small decisive model the card against the CPU: parity on
+     q5_0 and f16 files (greedy, beam 5, and greedy with the q8 cache, K3
+     at f16), grammars greedy and beam 5, identical segments.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -336,7 +348,8 @@ def check_self_attend_q8(dev, DA):
     NATIVE_PROMPT_BUCKETS, with the mask the prompt pass builds (causal,
     each row's left-pad cells hidden, a pad query seeing itself) over the
     native cache's cells; q is the f32 head view of the fused projection,
-    as decode_step passes it.  Then the cluster size at A = 448, G = 1."""
+    as decode_step passes it.  Then the cluster size at A = 448, G = 1, and
+    the parity mode's f16 rounding at B = 1, G = 1, A = 448."""
     from whisper_tpu_torch.decoding import device_loop as DL
     from whisper_tpu_torch.models.whisper import model as M
 
@@ -448,6 +461,17 @@ def check_self_attend_q8(dev, DA):
             log(f"  self_attend_q8 per decode step (4 launches, A=448): "
                 f"kernel_ms={4 * ms:.5f} library_ms={4 * library_ms:.5f} "
                 f"bound_ms={4 * b_ms:.5f} kernel_not_slower_than_library={ms <= library_ms}")
+            # the parity mode's q8 cache: q and p * s_v rounded to f16
+            out = DA.self_attend_q8(kv, scale, q, mask, l=L - 1, attn_ctx=A,
+                                    dtype=torch.float16)
+            ref = DA.self_attend_q8_plain(kv, scale, q, mask, l=L - 1, attn_ctx=A,
+                                          dtype=torch.float16)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 2.5e-3 * ref.abs().max().item()      # ~5 f16 ulps, as bf16's 2e-2
+            log(f"  check self_attend_q8[{tag},f16 (parity)]: max_abs_err={err:.3e} "
+                f"tol={tol:.3e}")
+            assert math.isfinite(err) and err <= tol
     agg["err"] = err_max
     return agg
 
@@ -830,9 +854,10 @@ def graph_matches_eager(ctx, counters, strategy: str, seeks, temperature: float 
                         n_lanes: int = 1) -> None:
     """Windows of `ctx` (its mel set) through the window loop's CUDA graphs
     and through its eager loop on the card: the same WindowResult bit for
-    bit and the same kernel launches (replays counted), window after
-    window, each encoded anew (a graph that read a stale cross-K/V would
-    differ from the eager loop from the second window on)."""
+    bit and the same kernel launches (replays counted; none in the parity
+    mode), window after window, each encoded anew (a graph that read a
+    stale cross-K/V would differ from the eager loop from the second window
+    on)."""
     v = ctx.vocab
     prompt = [v.token_sot, v.lang_token(0), v.token_transcribe]
     import whisper_tpu_torch as W
@@ -859,12 +884,18 @@ def graph_matches_eager(ctx, counters, strategy: str, seeks, temperature: float 
         (g, n_g), (e, n_e) = out["graphs"], out["eager"]
         for name in g._fields:
             assert np.array_equal(getattr(g, name), getattr(e, name)), (strategy, seek, name)
-        assert n_g == n_e and n_g["qmmt_fused"] > 0, (n_g, n_e)
+        assert n_g == n_e, (n_g, n_e)
+        if ctx.parity:                    # no kernel but K3 on a q8 cache
+            k3 = n_g["self_attend_q8"]
+            assert (k3 > 0) == (ctx.kv_itype == "q8") and sum(n_g.values()) == k3, n_g
+        else:
+            assert n_g["qmmt_fused"] > 0, n_g
         if seek == seeks[0]:
             # the same window again, with the same rng_seed: the same tokens
             assert np.array_equal(first.tok_id, g.tok_id)
-        log(f"  [{strategy} t={temperature} lanes={n_lanes} seek={seek}] graphs == eager "
-            f"bit for bit: tokens={int(g.n_tok.max())} launches={json.dumps(n_g)}")
+        log(f"  [{strategy} t={temperature} lanes={n_lanes} seek={seek}"
+            f"{' parity' if ctx.parity else ''}] graphs == eager bit for bit: "
+            f"tokens={int(g.n_tok.max())} launches={json.dumps(n_g)}")
 
 
 def native_graph_matches_eager(ctx, counters, strategy: str, n_windows: int,
@@ -1051,7 +1082,8 @@ def flash_encode(M, FA, EA, ctx, pcm: np.ndarray) -> None:
 
 def run_cli(W, TC, counters, model_path: str, wav: str, out_dir: str, extra):
     """The port's whisper-cli at its default flags (beam 5, best-of 5) on the
-    card, writing -otxt -ojf; wall time of the CLI and of its transcribe."""
+    card, writing -otxt -ojf; wall time of the CLI and of its transcribe
+    (with -p, which does not call `transcribe`, the CLI's alone)."""
     for fn in counters:
         fn.launches = 0
     inner, timed = W.transcribe, {}
@@ -1066,7 +1098,8 @@ def run_cli(W, TC, counters, model_path: str, wav: str, out_dir: str, extra):
         return segs
 
     W.transcribe = transcribe
-    base = os.path.join(out_dir, "cli" + "".join(extra).replace("-", "_"))
+    base = os.path.join(out_dir, "cli" + "".join(
+        os.path.basename(a) for a in extra).replace("-", "_"))
     t0 = time.perf_counter()
     try:
         rc = TC.run(["-m", model_path, "-f", wav, "-otxt", "-ojf", "-of", base, "-np",
@@ -1081,16 +1114,20 @@ def run_cli(W, TC, counters, model_path: str, wav: str, out_dir: str, extra):
     segs = js["transcription"]
     with open(base + ".txt") as f:
         n_lines = len(f.read().splitlines())
-    tm = timed["tm"]
     log(f"  whisper-cli {' '.join(extra) or '(defaults)'}: cli_wall_s={wall:.3f} "
-        f"transcribe_wall_s={timed['s']:.3f} segments={len(segs)} txt_lines={n_lines}")
-    log(f"    encode_ms_per_window={ms_per(tm.t_encode_us, tm.n_encode):.3f} "
-        f"windows={tm.n_encode} device_loop_ms_per_step={ms_per(tm.t_decode_us, tm.n_decode):.3f} "
-        f"device_loop_steps={tm.n_decode} device_loop_readbacks={timed['readbacks']} "
-        f"graphs_captured={tm.n_capture} capture_ms={tm.t_capture_us / 1e3:.3f} "
-        f"host_loop_ms_per_step={ms_per(tm.t_batchd_us, tm.n_batchd):.3f} "
-        f"host_loop_steps={tm.n_batchd} host_sample_ms={tm.t_sample_us / 1e3:.3f} "
-        f"fallbacks={tm.n_fail_p}")
+        + (f"transcribe_wall_s={timed['s']:.3f} " if timed else "")
+        + f"segments={len(segs)} txt_lines={n_lines}")
+    if timed:
+        # a host-loop run (the parity mode, grammars) counts its one-lane
+        # steps where the window loop counts its tokens (t_decode_us)
+        tm = timed["tm"]
+        log(f"    encode_ms_per_window={ms_per(tm.t_encode_us, tm.n_encode):.3f} "
+            f"windows={tm.n_encode} device_loop_ms_per_step={ms_per(tm.t_decode_us, tm.n_decode):.3f} "
+            f"device_loop_steps={tm.n_decode} device_loop_readbacks={timed['readbacks']} "
+            f"graphs_captured={tm.n_capture} capture_ms={tm.t_capture_us / 1e3:.3f} "
+            f"host_loop_ms_per_step={ms_per(tm.t_batchd_us, tm.n_batchd):.3f} "
+            f"host_loop_steps={tm.n_batchd} host_sample_ms={tm.t_sample_us / 1e3:.3f} "
+            f"fallbacks={tm.n_fail_p}")
     log(f"    launches={json.dumps(launches)}")
     for sg in segs[:6]:
         log(f"    [{sg['offsets']['from']:7d} -> {sg['offsets']['to']:7d}] {sg['text']!r}")
@@ -2032,6 +2069,172 @@ def check_parakeet(counters, tmp: str, t_start: float) -> None:
     log(f"  phase_s={time.perf_counter() - t_phase:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the parity mode and grammars
+# ---------------------------------------------------------------------------
+
+PARITY = "ggml_cpu_f16"
+GRAMMAR = "tests/data/text_parity/script.gbnf"
+
+
+def parity_runs(W, M, counters, path: str, pcm: np.ndarray, repeats: int = 3):
+    """`load(path, precision="ggml_cpu_f16")` + `transcribe()` of `pcm`: a
+    3 s warm-up (as phase 4's), then `repeats` timed runs with the same
+    segments, none of which launches a kernel (the JAX parity route
+    reaches no Pallas kernel).  Returns the context (its mel set) and the
+    segments."""
+    t0 = time.perf_counter()
+    ctx = W.load(path, precision=PARITY)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    assert ctx.parity and ctx.compute_dtype == torch.float16
+    assert ctx.cache_dtype == torch.float16 and not ctx.use_packed_weights
+    assert ctx.mel_fn.backend == "numpy"
+    assert isinstance(ctx.params["dec"]["tok_embd"], M.QWGGML)
+    assert isinstance(ctx.params["enc"]["blocks"]["mlp0_w"], M.QWGGML)
+    t0 = time.perf_counter()
+    W.transcribe(ctx, W.TranscribeParams(), pcm[:16000 * 3])
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls, segs = [], None
+    for _ in range(repeats):
+        ctx.timings.reset()
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = W.transcribe(ctx, W.TranscribeParams(), pcm)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        assert not any(launches.values()), launches
+        if segs is None:
+            segs, tm = got, copy.copy(ctx.timings)
+        assert [(s.t0, s.t1, s.text) for s in got] == [(s.t0, s.t1, s.text) for s in segs]
+    # host-loop steps: one-lane ones (t_decode_us) and those of several
+    # lanes (t_batchd_us, with the prompt decodes under 16 tokens)
+    n_steps = tm.n_decode + tm.n_batchd
+    step_ms = ms_per(tm.t_decode_us + tm.t_batchd_us, n_steps)
+    log(f"  [parity] load_s={t_load:.3f} warmup_3s_wall_s={t_warm:.3f} "
+        f"transcribe_wall_s median={float(np.median(walls)):.3f} min={min(walls):.3f} "
+        f"max={max(walls):.3f} runs={len(walls)} all={[round(w, 3) for w in walls]} "
+        f"segments={len(segs)} windows={tm.n_encode}")
+    log(f"  [parity] encode_ms_per_window={ms_per(tm.t_encode_us, tm.n_encode):.3f} "
+        f"host_loop_ms_per_step={step_ms:.3f} host_loop_steps={n_steps} "
+        f"(one-lane {ms_per(tm.t_decode_us, tm.n_decode):.3f} ms x {tm.n_decode}, "
+        f"batched {ms_per(tm.t_batchd_us, tm.n_batchd):.3f} ms x {tm.n_batchd}) "
+        f"host_filter_ms={tm.t_sample_us / 1e3:.3f} "
+        f"host_filter_ms_per_step={ms_per(tm.t_sample_us, n_steps):.3f} "
+        f"fallbacks={tm.n_fail_p} allocated_before_runs={base} "
+        f"peak_bytes_in_runs={torch.cuda.max_memory_allocated()} "
+        f"peak_above_before={torch.cuda.max_memory_allocated() - base} launches=0")
+    for s in segs[:4]:
+        log(f"    [{s.t0:6d} -> {s.t1:6d}] {s.text!r} tokens={[t.id for t in s.tokens][:12]}")
+    assert segs and all(s.tokens for s in segs)
+    assert all(0 <= s.t1 <= ctx.n_len_org + 3000 for s in segs)
+    assert all(0 <= t.id < ctx.hp.n_vocab for s in segs for t in s.tokens)
+    assert torch.isfinite(ctx.xk.float()).all() and ctx.xk.dtype == torch.float16
+    return ctx, segs
+
+
+def parity_grammar_card_matches_cpu(tmp: str, counters) -> None:
+    """The parity mode and grammars on the card against the CPU, on the
+    small decisive model of phase 5 at t = 0: parity (f16 products, no
+    kernel) on q5_0 and f16 files, greedy and beam 5, on 35 s (two
+    windows), and greedy with the q8 cache (K3 at f16 rounding on the card,
+    its plain version on the CPU); the committed grammar on the q5_0 file
+    (bf16 and packed planes on both sides, as phase 5), greedy and beam 5,
+    on 20 s (one window: the grammar's host filter costs ~50 ms a lane-step
+    whatever the model).  Identical segments and tokens.
+    tests/test_torch_gpu.py runs this same check."""
+    import whisper_tpu_torch as W
+    from whisper_tpu_torch.decoding import grammar_parser
+    from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
+    from whisper_tpu_torch.utils.synth import write_synth_model
+
+    hp = WhisperHParams(n_vocab=51865, n_audio_ctx=1500, n_audio_state=128,
+                        n_audio_head=2, n_audio_layer=2, n_text_ctx=448,
+                        n_text_state=128, n_text_head=2, n_text_layer=3, n_mels=80)
+    paths = {}
+    for qtype in ("q5_0", "f16"):
+        paths[qtype] = os.path.join(tmp, f"mini-{qtype}.bin")
+        write_synth_model(paths[qtype], hp, seed=1, qtype=qtype, decisive=True)
+    audio = (0.1 * np.random.default_rng(5).standard_normal(16000 * 35)).astype(np.float32)
+    with open(Path(__file__).resolve().parent / GRAMMAR) as f:
+        parsed = grammar_parser.parse(f.read())
+
+    def params(strategy, grammar):
+        p = (W.TranscribeParams.default(W.SamplingStrategy.BEAM_SEARCH)
+             if strategy == "beam" else W.TranscribeParams())
+        p.temperature_inc = 0.0
+        if grammar:
+            p.grammar_rules = parsed.rules
+            p.i_start_rule = parsed.start_rule_id("root")
+        return p
+
+    # (name, file, strategy, kv cache, grammar)
+    cases = [("parity", "q5_0", "greedy", "f16", False),
+             ("parity", "q5_0", "beam", "f16", False),
+             ("parity", "f16", "greedy", "f16", False),
+             ("parity", "f16", "beam", "f16", False),
+             ("parity", "q5_0", "greedy", "q8", False),
+             ("grammar", "q5_0", "greedy", "f16", True),
+             ("grammar", "q5_0", "beam", "f16", True)]
+    for name, qtype, strategy, kv, grammar in cases:
+        pcm = audio[:16000 * 20] if grammar else audio
+        kw = ({} if grammar else {"precision": PARITY})
+        card_ctx = W.load(paths[qtype], kv_itype=kv, **kw)
+        cpu_kw = ({"use_packed_weights": True, "compute_dtype": torch.bfloat16}
+                  if grammar else kw)
+        cpu_ctx = W.load(paths[qtype], device="cpu", kv_itype=kv, **cpu_kw)
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        gpu = W.transcribe(card_ctx, params(strategy, grammar), pcm)
+        t_card = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        t0 = time.perf_counter()
+        cpu = W.transcribe(cpu_ctx, params(strategy, grammar), pcm)
+        t_cpu = time.perf_counter() - t0
+        a = [(s.t0, s.t1, s.text, [t.id for t in s.tokens]) for s in gpu]
+        b = [(s.t0, s.t1, s.text, [t.id for t in s.tokens]) for s in cpu]
+        tag = f"[{name} {qtype} {strategy} kv={kv}]"
+        log(f"  {tag} card segments={[x[:3] for x in a][:4]} card_s={t_card:.3f} "
+            f"cpu_s={t_cpu:.3f} launches={json.dumps(launches)}")
+        assert a == b and len(a) >= 1 + (not grammar), (a, b)
+        if grammar:
+            assert launches["qmmt_fused"] > 0 and launches["self_attention_qkv"] > 0
+        else:
+            k3 = launches.pop("self_attend_q8")
+            assert (k3 > 0) == (kv == "q8") and not any(launches.values()), (k3, launches)
+        assert not card_ctx._window_fns                   # the host loop only
+        log(f"  {tag} card == cpu: {len(a)} segments and their tokens identical")
+
+
+def check_parity_grammar(W, M, TC, counters, path: str, wav: str, pcm: np.ndarray,
+                         tmp: str) -> dict:
+    """Phase 9 on the turbo file; returns the grammar CLI's launches (q8)."""
+    t_phase = time.perf_counter()
+    ctx, _ = parity_runs(W, M, counters, path, pcm)
+    graph_matches_eager(ctx, counters, "greedy", seeks=(0,))
+    del ctx
+    for extra in (["--precision", PARITY], ["--precision", PARITY, "-p", "2"]):
+        launches = run_cli(W, TC, counters, path, wav, tmp, extra)
+        assert not any(launches.values()), launches
+    grammar = ["--grammar", str(Path(__file__).resolve().parent / GRAMMAR),
+               "--grammar-rule", "root"]
+    g_f16 = run_cli(W, TC, counters, path, wav, tmp, grammar)
+    g_q8 = run_cli(W, TC, counters, path, wav, tmp, grammar + ["--kv-itype", "q8"])
+    for launches in (g_f16, g_q8):
+        assert launches["qmmt_fused"] > 0 and launches["self_attention_qkv"] > 0, launches
+    assert g_q8["self_attend_q8"] > 0 and g_f16["self_attend_q8"] == 0, (g_f16, g_q8)
+    with tempfile.TemporaryDirectory() as small:
+        parity_grammar_card_matches_cpu(small, counters)
+    log(f"  phase_s={time.perf_counter() - t_phase:.1f}")
+    return g_q8
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -2155,6 +2358,10 @@ def main() -> int:
     heading("8. Parakeet-TDT: full width, packed q5_0, the TDT loop's graphs, "
             "batched utterances, 700 s, parakeet-cli, card vs CPU", t_start)
     check_parakeet(counters, turbo.name, t_start)
+
+    heading("9. the parity mode and grammars: load(precision=ggml_cpu_f16), graphs vs "
+            "eager, whisper-cli --precision/-p 2/--grammar, card vs CPU", t_start)
+    check_parity_grammar(W, M, TC, counters, path, wav, pcm, turbo.name)
     turbo.cleanup()
 
     def entry(name, src, replaces, agg, n_launches):

@@ -94,16 +94,6 @@ def _assert_json_equal(a, b, where="json"):
         assert a == b, (where, a, b)
 
 
-@pytest.mark.parametrize("flags,name", [
-    (["--grammar", "g.gbnf", "--grammar-rule", "root"], "--grammar"),
-    (["--precision", "ggml_cpu_f16"], "--precision ggml_cpu_f16")])
-def test_cli_refuses_unported_flags(files, capsys, flags, name):
-    model, wav = files
-    rc = TC.run(["-m", model, "-f", wav, "-ng", *flags])
-    assert rc != 0
-    assert f"not ported to whisper_tpu_torch yet: {name}" in capsys.readouterr().err
-
-
 def test_cli_processors_match_jax(files, tmp_path, global_flags):
     # -p 2: two chunks whose windows batch natively (decoding/parallel.py),
     # at the default flags (beam 5, best-of 5); the text formats byte-equal

@@ -34,6 +34,7 @@ VERBATIM = [
     "models/whisper/writer.py", "formats/container.py", "formats/kquants.py",
     "formats/iquants.py", "formats/iq_tables.py", "formats/iq_grids.npz",
     "decoding/tokenizer.py", "decoding/languages.py", "decoding/logits.py",
+    "decoding/grammar.py", "decoding/grammar_parser.py",
     "decoding/params.py", "decoding/sampling.py", "decoding/stdrng.py",
     "decoding/timestamps.py", "runtime/timings.py", "audio/io.py",
     "models/vad/writer.py", "models/parakeet/__init__.py",

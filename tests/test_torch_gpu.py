@@ -14,6 +14,10 @@ card and skip without one (run them on the card with
 
 Tolerances: qmmt 1e-4 of max |y| (f32 sums in another order over K up to
 5120; the kernel itself is bit-identical from call to call); self_attend_q8 f32 1e-5, bf16 2e-2 (one bf16 ulp on p * s_v);
+self_attend_q8 f16 (the parity mode's q8 cache) 2.5e-3, about as many f16
+ulps as bf16's bound is bf16 ulps; the parity mode's Q8_0 activation rows
+bit-identical to the CPU's, its block-dot products within 2e-6 of max |y|
+(exact integer dots, f32 sums over the blocks in another order);
 self_attention_qkv 8e-3 of max |out| (the same rounding points, so only
 the f32 sums' order differs, which can move an output's bf16 rounding by
 one ulp, at most 2^-7 of the value); qmm 1e-4 of max |y| (the same
@@ -105,7 +109,8 @@ def test_qmmt_kernel_refuses_unaligned_rows(cuda):
 @pytest.mark.parametrize("B", [1, 5])
 @pytest.mark.parametrize("G,A", [(1, 100), (1, 448), (4, 256), (16, 384), (16, 100),
                                  (20, 100)])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2.5e-3)])
 def test_self_attend_q8_kernel(cuda, B, G, A, dtype, tol):
     L, H, C, D = 4, 20, 448, 64
     g = torch.Generator().manual_seed(0)
@@ -198,9 +203,9 @@ def test_flash_self_attention_kernel(cuda, H, T, true_len, D, dtype):
 _DECISIVE = {}
 
 
-def _decisive_ctx(tmp_path_factory, kv_itype):
+def _decisive_ctx(tmp_path_factory, kv_itype, **kw):
     """A card context on a small decisive model with 35 s of seeded audio's
-    mel set (two windows)."""
+    mel set (two windows); `kw` go to load()."""
     import whisper_tpu_torch as W
     from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
     from whisper_tpu_torch.utils.synth import write_synth_model
@@ -212,7 +217,7 @@ def _decisive_ctx(tmp_path_factory, kv_itype):
         path = str(tmp_path_factory.mktemp("window") / "decisive-q5_0.bin")
         write_synth_model(path, hp, seed=1, qtype="q5_0", decisive=True)
         _DECISIVE["path"] = path
-    ctx = W.load(_DECISIVE["path"], kv_itype=kv_itype)
+    ctx = W.load(_DECISIVE["path"], kv_itype=kv_itype, **kw)
     ctx.pcm_to_mel((0.1 * np.random.default_rng(5).standard_normal(16000 * 35))
                    .astype(np.float32))
     return ctx
@@ -240,6 +245,67 @@ def test_window_graphs_sample_at_t_above_0(cuda, tmp_path_factory):
     ctx = _decisive_ctx(tmp_path_factory, "q8")
     graph_matches_eager(ctx, COUNTED, "greedy", seeks=(0, 3000), temperature=0.7,
                         n_lanes=5)
+
+
+@pytest.mark.parametrize("kv_itype", ["f16", "q8"])
+@pytest.mark.parametrize("strategy", ["greedy", "beam"])
+def test_parity_window_graphs_match_eager(cuda, tmp_path_factory, strategy, kv_itype):
+    # the parity mode's window decoder (an f16 cache, f16 products inside
+    # full_f32): graphs == eager bit for bit, and no kernel but K3 (q8)
+    from chip_smoke import graph_matches_eager
+    from whisper_tpu_torch.decoding.graphs import COUNTED
+
+    ctx = _decisive_ctx(tmp_path_factory, kv_itype, precision="ggml_cpu_f16")
+    graph_matches_eager(ctx, COUNTED, strategy, seeks=(0, 3000),
+                        n_lanes=5 if strategy == "beam" else 1)
+
+
+def _half_way_rows(n, k, seed):
+    """Rows whose Q8_0 codes sit on .5: blocks with amax 127 (d = 1) or
+    63.5 (d = 0.5) whose other values are (j + 0.5) * d; and plain rows."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        d = (1.0, 0.5, None)[i % 3]
+        if d is None:
+            rows.append(rng.standard_normal(k) * 4)
+            continue
+        x = (rng.integers(-126, 126, k) + 0.5) * d
+        x[::32] = 127.0 * d
+        rows.append(x)
+    return torch.from_numpy(np.stack(rows).astype(np.float32))
+
+
+@pytest.mark.parametrize("rows,K,R", [(1, 1280, 51866), (5, 1280, 3840), (1500, 1280, 5120),
+                                      (1500, 5120, 1280)])
+def test_mm_ggml_q_card_matches_cpu(cuda, rows, K, R):
+    from whisper_tpu_torch.decoding.graphs import DEVICE_LOCK, full_f32
+    from whisper_tpu_torch.models.whisper import model as M
+
+    x = _half_way_rows(rows, K, rows)
+    w = np.random.default_rng(K).standard_normal((R, K)).astype(np.float32)
+    p = Q.unpack_to_planes(Q.quantize(w, Q.GGML_TYPE_Q5_0), Q.GGML_TYPE_Q5_0, (R, K))
+    wq = M.QWGGML(torch.from_numpy(p.codes.astype(np.float32)), torch.from_numpy(p.scales))
+    wd = M.QWGGML(*(a.to(cuda) for a in wq))
+    with DEVICE_LOCK, full_f32():
+        q_card, d_card = M._q8_0_rows(x.to(cuda))
+        y_card = M._mm_ggml_q(x.to(cuda), wd)
+    q_cpu, d_cpu = M._q8_0_rows(x)
+    assert torch.equal(q_card.cpu(), q_cpu) and torch.equal(d_card.cpu(), d_cpu)
+    # rows 0, 3, ... have d = 1: their codes are roundf(x), which half-to-even
+    # rounding misses on the half-way points
+    half = x[::3].unflatten(-1, (-1, 32))
+    assert not torch.equal(q_cpu[::3], torch.round(half))
+    y_cpu = M._mm_ggml_q(x, wq)
+    assert (y_card.cpu() - y_cpu).abs().max() <= 2e-6 * y_cpu.abs().max()
+
+
+def test_parity_grammar_card_matches_cpu(cuda, tmp_path):
+    # the check lives in chip_smoke.py (its phase 9); this runs it under pytest
+    from chip_smoke import parity_grammar_card_matches_cpu
+    from whisper_tpu_torch.decoding.graphs import COUNTED
+
+    parity_grammar_card_matches_cpu(str(tmp_path), COUNTED)
 
 
 def test_transcribe_card_matches_cpu(cuda, tmp_path):

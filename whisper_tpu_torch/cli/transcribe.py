@@ -12,9 +12,10 @@ the encoder and a q8 cache take the plain graphs, as in the JAX package.
 -p N splits each file into N chunks whose window decodes batch natively
 on the card (decoding/parallel.py, runtime/batching.py).  -vad -vm FILE
 runs the Silero VAD on the card before the window loop, and -dtw PRESET
-(or top:N) the DTW token timestamps after each window.  Flags whose
-modules are not ported yet (--grammar, --precision ggml_cpu_f16) exit with
-an error and a non-zero code.
+(or top:N) the DTW token timestamps after each window.  --grammar FILE
+--grammar-rule NAME constrains decoding to a GBNF grammar, and --precision
+ggml_cpu_f16 reproduces the reference CPU backend's f16 arithmetic (parity
+mode); both step the window's tokens through the host loop.
 """
 
 from __future__ import annotations
@@ -22,10 +23,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-from pathlib import Path
 from typing import List, Optional
-
-import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -151,25 +149,12 @@ def _print_segment(seg, args, vocab, stereo):
     print(line, flush=True)
 
 
-def _unported(args) -> List[str]:
-    """The flags whose modules are not ported to whisper_tpu_torch yet."""
-    return [flag for flag, on in (
-        ("--grammar", bool(args.grammar)),
-        ("--precision ggml_cpu_f16", args.precision == "ggml_cpu_f16"),
-    ) if on]
-
-
 def run(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     files = list(args.files) + list(args.files_pos)
     if not files:
         print("error: no input files specified", file=sys.stderr)
         return 1
-    unported = _unported(args)
-    if unported:
-        print(f"error: not ported to whisper_tpu_torch yet: {', '.join(unported)}",
-              file=sys.stderr)
-        return 2
 
     if args.no_flash_attn:
         import os
@@ -241,6 +226,14 @@ def run(argv: Optional[List[str]] = None) -> int:
         p.split_on_word = args.split_on_word
         p.audio_ctx = args.audio_ctx
         p.suppress_regex = args.suppress_regex
+        if args.grammar and args.grammar_rule:
+            from ..decoding import grammar_parser
+
+            with open(args.grammar) as gf:
+                parsed = grammar_parser.parse(gf.read())
+            p.grammar_rules = parsed.rules
+            p.i_start_rule = parsed.start_rule_id(args.grammar_rule)
+            p.grammar_penalty = args.grammar_penalty
         p.initial_prompt = args.prompt
         p.carry_initial_prompt = args.carry_initial_prompt
         p.greedy.best_of = args.best_of

@@ -10,7 +10,8 @@
 //
 //   kv (L, B, H, 2, C, d) int8 (K at [..., 0, :, :]); scale (L, B, 2, C) f32;
 //   q (B, H, G, d) f32 or bf16 through strides (the head view of the fused
-//   projection), rounded to the compute type on load; mask (B, G, A) f32
+//   projection), rounded to the compute type (f32, bf16, or f16 in the
+//   parity mode) on load; mask (B, G, A) f32
 //   additive over the first A cells; out (B, H, G, d) f32.
 //
 // What bounds it on an H100: bytes, 57 KB of cache per (b, h) at A = 448,
@@ -43,6 +44,8 @@
 //    (a decode step has G = 1, a prompt pass up to 448).
 #include "common.cuh"
 
+#include <cuda_fp16.h>
+
 #include <cooperative_groups.h>
 
 namespace cg = cooperative_groups;
@@ -62,9 +65,14 @@ struct Args {
   long long sqb, sqh, sqg;  // q strides in elements (the last one is 1)
   const float* mask;
   float* out;
-  int q_bf16, B, H, G, C, A, l, round_bf16, nc;
+  int q_bf16, B, H, G, C, A, l, round_to, nc;
   float inv_sqrt_d;
 };
+
+// the compute type's rounding: 0 none (f32), 1 bf16, 2 f16
+__device__ __forceinline__ float round_to(float v, int mode) {
+  return mode == 1 ? wtt_round_bf16(v) : mode == 2 ? __half2float(__float2half_rn(v)) : v;
+}
 
 // GC: query rows per chunk (1 at a decode step, 4 or 16 for prompt passes)
 template <int D, int GC>
@@ -133,7 +141,7 @@ __global__ void __launch_bounds__(kThreads) self_attend_q8_kernel(const Args a) 
       for (int u = 0; u < 8; ++u) {
         const int i = base + u * kThreads;
         if (i < nq) {
-          qs[i] = a.round_bf16 ? wtt_round_bf16(v[u]) : v[u];
+          qs[i] = round_to(v[u], a.round_to);
         } else if (i < nall) {
           const int m = i - nq;
           sc[(m / na) * n + m % na] = v[u];
@@ -197,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) self_attend_q8_kernel(const Args a) 
       for (int r = 0; r < NC; ++r) S += __shfl_sync(WTT_FULL_MASK, part_l, r);
       for (int i = lane; i < na; i += 32) {
         const float p = expf(sc[g * n + i] - M) / S * sv[i];
-        sc[g * n + i] = a.round_bf16 ? wtt_round_bf16(p) : p;
+        sc[g * n + i] = round_to(p, a.round_to);
       }
     }
     __syncthreads();
@@ -293,7 +301,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 extern "C" int wtt_self_attend_q8(const void* kv, const void* scale, const void* q,
                                   int q_bf16, long long sqb, long long sqh, long long sqg,
                                   const void* mask, void* out, int B, int H, int G, int C,
-                                  int D, int A, int l, int round_bf16, int cluster,
+                                  int D, int A, int l, int round_to, int cluster,
                                   void* stream) {
   Args a;
   a.kv = static_cast<const int8_t*>(kv);
@@ -303,7 +311,7 @@ extern "C" int wtt_self_attend_q8(const void* kv, const void* scale, const void*
   a.mask = static_cast<const float*>(mask);
   a.out = static_cast<float*>(out);
   a.q_bf16 = q_bf16; a.B = B; a.H = H; a.G = G; a.C = C; a.A = A; a.l = l;
-  a.round_bf16 = round_bf16;
+  a.round_to = round_to;
   a.nc = cluster;
   a.inv_sqrt_d = 1.0f / sqrtf((float)D);
   auto s = static_cast<cudaStream_t>(stream);

@@ -34,10 +34,15 @@ seeded with its `rng_seed`, so a window draws the same numbers batched or
 solo, whatever shares its batch.  JAX's PRNG bits cannot be reproduced,
 so t>0 agreement with the JAX package is statistical.  At t=0 selection is
 argmax and exact.
+
+`parity=True` decodes in the ggml-CPU parity mode (models/whisper/model.py
+`decode_step(parity)`): an f16 cache, one more dtype at its one address,
+and every prompt pass, capture and eager step inside graphs.full_f32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from typing import NamedTuple, Tuple
@@ -441,7 +446,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                         compute_dtype, no_timestamps: bool,
                         single_segment: bool, vocab_eot: int, vocab_beg: int,
                         kv_itype: str = "f16", strategy: str = "greedy",
-                        n_windows: int = 1):
+                        n_windows: int = 1, parity: bool = False):
     """Build the whole-window decode function for one (lane count, prompt
     bucket, timestamp mode, strategy, window count): "greedy" (greedy or
     best-of sampling lanes) or "beam" (beam search at t=0).
@@ -456,6 +461,9 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
     row's last prompt cell is bucket - 1 and step i writes cell bucket + i
     for all rows; each row has its own positions and an additive mask over
     its pad cells.  Result fields are (W, n_beams, ...), prompt_probs (W, V).
+
+    parity: the ggml-CPU parity mode (compute_dtype f16, an f16 cache),
+    as the JAX package's `make_window_decoder(parity=True)`.
 
     On a CUDA tensor the steps replay CUDA graphs, one per attention-bucket
     segment and sampling branch, captured at first use over the decoder's
@@ -474,6 +482,9 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
     W, G = n_windows, n_beams
     native = W > 1
     cache_dtype = torch.bfloat16 if compute_dtype == torch.bfloat16 else torch.float32
+    if parity:
+        cache_dtype = torch.float16
+    numerics = CG.full_f32 if parity else contextlib.nullcontext
     prompt_ctx = next(a for a in M.attn_ctx_buckets(hp.n_text_ctx)
                       if a >= prompt_bucket)
     # bucket segments reachable from this prompt bucket (JAX: one
@@ -592,7 +603,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
         logits_next, _ = M.decode_step(
             params, tok[:, None], step_pos, st.head + i, st.cache, st.xk, st.xv,
             hp, dtype=compute_dtype, attn_mask=st.attn_mask, attn_ctx=attn_ctx,
-            xkv_group=G if native else 1)
+            xkv_group=G if native else 1, parity=parity)
         st.logits_row.copy_(logits_next[:, 0])
         st.i.add_(1)
 
@@ -640,7 +651,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                               hp.n_text_ctx - 1)[None, :]
             logits_all, cache1 = M.decode_step(
                 params, prompts[None, :], pos, 0, cache1, xk, xv, hp,
-                dtype=compute_dtype, attn_ctx=prompt_ctx)
+                dtype=compute_dtype, attn_ctx=prompt_ctx, parity=parity)
             last = logits_all[:, prompt_lens[0] - 1]                    # (1, V)
             return cache1, last, torch.softmax(last[0].float(), dim=-1), None
         # left-pad: cell c of row w holds token c - shift_w; cells below
@@ -654,7 +665,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                               n_cells=n_cells)
         logits_all, cache_w = M.decode_step(
             params, prompt_lp, pos, 0, cache_w, xk, xv, hp, dtype=compute_dtype,
-            attn_mask=mask_prompt, attn_ctx=prompt_ctx)
+            attn_mask=mask_prompt, attn_ctx=prompt_ctx, parity=parity)
         last = logits_all[:, prompt_bucket - 1]                         # (W, V)
         return cache_w, last, torch.softmax(last.float(), dim=-1), pad
 
@@ -671,7 +682,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
             lens, temps, seeks, ends, seeds = ([a] for a in (
                 prompt_len, temperature, seek, seek_end, rng_seed))
             head = prompt_len
-        with CG.DEVICE_LOCK:
+        with CG.DEVICE_LOCK, numerics():
             cache_w, last, prompt_probs, pad = prompt_pass(params, prompt, lens,
                                                            xk, xv)
             st = state_for(params, xk, xv, base_mask, last.shape[-1], prompt.device)

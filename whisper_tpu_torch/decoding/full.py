@@ -12,8 +12,9 @@ Every decoder rule stays on the host; the tensor work runs in
 reshuffling is a device-side gather (KVCache.reorder).  Before the window
 loop `transcribe` runs the Silero VAD prefilter (models/vad/pipeline.py)
 when asked, and after each window the DTW token timestamps
-(decoding/dtw.py) when the context enabled them.  Not ported yet, and
-refused with NotImplementedError rather than routed elsewhere: grammars.
+(decoding/dtw.py) when the context enabled them.  Grammar-constrained
+decoding (decoding/grammar.py) and the ggml-CPU parity mode
+(precision="ggml_cpu_f16") take the host token loop, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from ..models.whisper.hparams import CHUNK_SIZE
 from ..runtime.context import WhisperContext
 from .graphs import DEVICE_LOCK
+from . import grammar as G
 from . import logits as LF
 from .languages import lang_id as lang_to_id, lang_str, LANGUAGES
 from .params import (HISTORY_CONDITIONING_TEMP_CUTOFF, SamplingStrategy,
@@ -61,6 +63,7 @@ class _Decoder:
     failed: bool = False
     completed: bool = False
     has_ts: bool = False
+    grammar: Optional[object] = None
     i_batch: int = 0
     rng: Optional[object] = None  # stdrng.StdRng (reference mt19937 emu)
     # filtered distributions of the last step
@@ -75,6 +78,7 @@ class _BeamCandidate:
     seek_delta: int
     has_ts: bool
     sequence: Sequence
+    grammar: Optional[object] = None
 
 
 def lang_auto_detect(ctx: WhisperContext, offset_ms: int = 0) -> Tuple[int, np.ndarray]:
@@ -102,17 +106,10 @@ def _tile_cache(cache, n_beam: int):
                              for a in cache))
 
 
-def _refuse_unported(params: TranscribeParams) -> None:
-    if params.grammar_rules is not None:
-        raise NotImplementedError(
-            "not ported to whisper_tpu_torch yet: grammar_rules")
-
-
 def transcribe(ctx: WhisperContext, params: TranscribeParams,
                samples: Optional[np.ndarray]) -> List[Segment]:
     """whisper_full (src/whisper.cpp:7788-7810): optional VAD prefilter, then
     the windowed decode loop.  Returns the segment list."""
-    _refuse_unported(params)
     if params.vad:
         from ..models.vad.pipeline import filter_speech
 
@@ -133,7 +130,6 @@ def transcribe(ctx: WhisperContext, params: TranscribeParams,
 
 def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                     samples: Optional[np.ndarray]) -> List[Segment]:
-    _refuse_unported(params)
     vocab = ctx.vocab
     hp = ctx.hp
     result_all: List[Segment] = []
@@ -249,14 +245,22 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
     params_no_ts = no_timestamps
 
     # device-loop eligibility: the whole token loop runs with its state on
-    # the device unless a host-side feature (logits callback) is requested.
+    # the device unless a host-side feature (grammar, logits callback) is
+    # requested.
     # Beam search runs there at t=0 with DETERMINISTIC top-k candidates, as
     # in the JAX package (the reference DRAWS beam_size candidates from the
     # filtered distribution, whisper.cpp:7262, which on a peaked
     # distribution gives copies of the argmax); the mt19937 draws it skips
     # are accounted for below.  At t>0 the reference degrades BEAM_SEARCH
     # to best_of sampling decoders (src/whisper.cpp:7086-7091).
-    device_loop_ok = not ctx.is_empty and params.logits_filter_callback is None
+    device_loop_ok = (
+        not ctx.is_empty
+        and params.grammar_rules is None
+        and params.logits_filter_callback is None
+        # the parity mode runs the host loop, as in the JAX package: its
+        # per-step numpy filters share f64 host arithmetic with the
+        # reference's C doubles (the window decoder takes parity=True too)
+        and not ctx.parity)
 
     # abort hook: the reference checks `abort_callback` before every graph
     # compute (src/whisper.cpp:2461,2983) and bails out of whisper_full; here
@@ -314,6 +318,9 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                 d.failed = False
                 d.completed = False
                 d.has_ts = False
+                d.grammar = (G.grammar_init(params.grammar_rules,
+                                            params.i_start_rule)
+                             if params.grammar_rules is not None else None)
 
             # build prompt for this iteration
             prompt: List[int] = []
@@ -398,7 +405,7 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                 d0 = decoders[0]
                 d0.logits, d0.logprobs, d0.probs = LF.process_logits(
                     raw, ctx.filter_tables, params, t_cur,
-                    d0.sequence.tokens, d0.has_ts, d0.seek_delta)
+                    d0.sequence.tokens, d0.has_ts, d0.seek_delta, d0.grammar)
                 for j in range(1, n_decoders_cur):
                     d = decoders[j]
                     d.logits = d0.logits.copy()
@@ -412,7 +419,7 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                     d = decoders[j]
                     d.logits, d.logprobs, d.probs = LF.process_logits(
                         raw, ctx.filter_tables, params, t_cur,
-                        d.sequence.tokens, d.has_ts, d.seek_delta)
+                        d.sequence.tokens, d.has_ts, d.seek_delta, d.grammar)
 
             n_max = 0 if use_device_loop else hp.n_text_ctx // 2 - 4
             for i in range(n_max):
@@ -433,8 +440,10 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                         for td in sample_token_topk(
                                 vocab, d.probs, d.logprobs,
                                 params.beam_search.beam_size, d.rng):
-                            bc = _BeamCandidate(j, d.seek_delta, d.has_ts,
-                                                d.sequence.copy())
+                            bc = _BeamCandidate(
+                                j, d.seek_delta, d.has_ts, d.sequence.copy(),
+                                G.grammar_copy(d.grammar)
+                                if d.grammar is not None else None)
                             bc.sequence.tokens.append(td)
                             bc.sequence.sum_logprobs_all += td.plog
                             bc_per_dec[j].append(bc)
@@ -467,7 +476,10 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                         d.has_ts = cur.has_ts
                         # value copy (src/whisper.cpp:7336): a candidate can
                         # seed several decoders; each must own its sequence
+                        # and its grammar stacks
                         d.sequence = cur.sequence.copy()
+                        d.grammar = (G.grammar_copy(cur.grammar)
+                                     if cur.grammar is not None else None)
                         src_rows[j] = cur.decoder_idx
                     if cache is not None and src_rows != list(range(n_decoders_cur)):
                         with DEVICE_LOCK:
@@ -490,6 +502,9 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                         d.seek_delta = seek_delta_new
                         d.sequence.result_len = i + 1
                         d.has_ts = True
+
+                    if d.grammar is not None:
+                        G.accept_token(vocab, d.grammar, token.id)
 
                     if (token.id == vocab.token_eot or
                             (params.max_tokens > 0 and i >= params.max_tokens) or
@@ -544,7 +559,7 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                         continue
                     d.logits, d.logprobs, d.probs = LF.process_logits(
                         logits_rows[j], ctx.filter_tables, params, t_cur,
-                        d.sequence.tokens, d.has_ts, d.seek_delta)
+                        d.sequence.tokens, d.has_ts, d.seek_delta, d.grammar)
                 ctx.timings.t_sample_us += int((time.perf_counter() - t0s) * 1e6)
 
             # rank sequences

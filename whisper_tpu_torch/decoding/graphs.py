@@ -31,10 +31,11 @@ at any allocation in any thread, a capture's included.  So a CountedGraph
 that goes away leaves its graph in _RETIRED, and the next capture destroys
 the retired graphs, holding the lock, before it begins.
 
-full_f32: the VAD and the device mel compute in IEEE f32 whatever the
-caller's TF32 flags (PyTorch's cuDNN convolutions default to TF32 on
-Hopper).  The flags are process-wide, so they change only under
-DEVICE_LOCK, where no other thread of the port launches.
+full_f32: the VAD, the device mel, the Parakeet encoder and the whisper
+parity mode compute in IEEE f32 whatever the caller's TF32 flags
+(PyTorch's cuDNN convolutions default to TF32 on Hopper), and their f16
+products reduce in f32.  The flags are process-wide, so they change only
+under DEVICE_LOCK, where no other thread of the port launches.
 """
 
 from __future__ import annotations
@@ -55,15 +56,20 @@ _RETIRED = []     # graphs of dropped CountedGraphs, destroyed by the next captu
 
 @contextlib.contextmanager
 def full_f32():
-    """Inside, f32 matmuls and cuDNN convolutions run without TF32; the
-    caller's flags come back on exit.  Hold DEVICE_LOCK around it."""
-    mm, conv = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    """Inside, f32 matmuls and cuDNN convolutions run without TF32 and f16
+    matmuls without reduced-precision reductions; the caller's flags come
+    back on exit.  Hold DEVICE_LOCK around it."""
+    cm = torch.backends.cuda.matmul
+    mm, conv = cm.allow_tf32, torch.backends.cudnn.allow_tf32
+    red = cm.allow_fp16_reduced_precision_reduction
+    cm.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cm.allow_fp16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
+        cm.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = conv
+        cm.allow_fp16_reduced_precision_reduction = red
 
 
 class CountedGraph:

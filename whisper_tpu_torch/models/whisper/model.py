@@ -13,6 +13,14 @@ ops/enc_attn.py, ops/attention.py, ops/decode_attn.py), on the routes the
 JAX package picks (WTPU_ENC_ATTN, WTPU_DECODE_ATTN, `set_flash_enabled`);
 everything else is plain tensor code, as it is plain XLA in the JAX package.
 
+`parity=True` is the JAX package's ggml-CPU parity mode
+(precision="ggml_cpu_f16", runtime/context.py): f16 operands, f16 caches,
+the f16 GELU table and, for quantized files, the reference's Q8_0
+activation rows with integer block dots (`QWGGML`, `_mm_ggml_q`).  On the
+card its products must run without TF32 or reduced-precision reductions
+(decoding/graphs.py `full_f32`, which the context and the window decoder
+enter).
+
 One deliberate difference from the JAX package: `decode_step` writes the new
 K/V column into the cache IN PLACE (the JAX functions are pure and return a
 new cache), which saves a cache copy per step.
@@ -32,8 +40,13 @@ from ...ops.qmm import QWeight, QWeightT, embed_lookup, qmmt_auto, qmmt_fused_au
 from .hparams import WhisperHParams
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
+def _gelu(x: torch.Tensor, parity: bool = False) -> torch.Tensor:
     # ggml_gelu is the tanh approximation (ggml/src/ggml-cpu/ops.cpp GELU LUT)
+    if parity:
+        # GGML_GELU_FP16 table emulation (ggml/src/ggml-cpu/vec.h:987-1001):
+        # y = f16(gelu(f32(f16(x)))) with hard 0/x clamps outside [-10, 10]
+        y = F.gelu(x.half().float(), approximate="tanh").half().float()
+        return torch.where(x <= -10.0, 0.0, torch.where(x >= 10.0, x, y))
     return F.gelu(x, approximate="tanh")
 
 
@@ -74,6 +87,65 @@ class CapturedWeight:
             "imatrix capture (CapturedWeight) is not ported to whisper_tpu_torch")
 
 
+class QWGGML(NamedTuple):
+    """ggml-CPU-parity quantized weight: centred integer codes in FILE
+    orientation (out, in) held as exact f32 integers, and per-32-block f32
+    scales (f16-exact values).  `_mm` reproduces ggml's quantized mul_mat
+    from these (`_mm_ggml_q`)."""
+
+    codes: torch.Tensor   # (out, in) f32 integer codes
+    scales: torch.Tensor  # (out, in // 32) f32
+
+
+def _round_half_away(v: torch.Tensor) -> torch.Tensor:
+    # C roundf(): halves round away from zero (torch.round is half-to-even)
+    return torch.sign(v) * torch.floor(v.abs() + 0.5)
+
+
+# the most bytes one (n_blocks, rows, out) f32 block-dot chunk may take
+_GGML_Q_PART_BYTES = 256 << 20
+
+
+def _q8_0_rows(x: torch.Tensor):
+    """Activation rows (..., K) as ggml's Q8_0 blocks (quantize_row_q8_0_ref):
+    codes (..., K // 32, 32) as exact f32 integers and the block scales
+    f32(f16(d)) (..., K // 32), with d = amax/127, id = 1/d taken before
+    the f16 rounding of d, and C roundf codes.
+
+    Every step is an IEEE operation of its own, since a half-way point
+    decides a code: `d` divides by a tensor, as PyTorch's CUDA division by
+    a Python scalar multiplies by its reciprocal instead."""
+    xb = x.float().unflatten(-1, (-1, 32))
+    amax = xb.abs().amax(-1)
+    d = amax / torch.full_like(amax, 127.0)
+    idd = torch.where(d > 0, torch.ones_like(d) / torch.where(d == 0, 1.0, d), 0.0)
+    return _round_half_away(xb * idd[..., None]), d.half().float()
+
+
+def _mm_ggml_q(x: torch.Tensor, w: QWGGML) -> torch.Tensor:
+    """ggml CPU quantized mul_mat: activation rows quantize to Q8_0
+    (`_q8_0_rows`), then per-32-block INTEGER dots, exact in f32
+    (|sumi| < 2^24), scaled by f32(f16(d_w)) * f32(f16(d_x)) and summed
+    over the blocks in f32 (ggml/src/ggml-cpu/quants.c
+    ggml_vec_dot_q5_0_q8_0_generic), in the JAX package's association.
+
+    The block dots run over row chunks so that no (n_blocks, rows, out)
+    intermediate passes _GGML_Q_PART_BYTES (1500 encoder rows x 5120
+    outputs x 40 blocks would take 1.2 GB at once)."""
+    out_dim, in_dim = w.codes.shape
+    nb = in_dim // 32
+    lead = x.shape[:-1]
+    q, dx = _q8_0_rows(x.reshape(-1, in_dim))
+    q = q.transpose(0, 1)                                         # (nb, rows, 32)
+    dx = dx.T[..., None]                                          # (nb, rows, 1)
+    wc = w.codes.reshape(out_dim, nb, 32).permute(1, 2, 0)        # (nb, 32, out)
+    ws = w.scales.T[:, None, :]                                   # (nb, 1, out)
+    step = max(1, _GGML_Q_PART_BYTES // (4 * nb * out_dim))
+    y = torch.cat([(torch.bmm(q[:, r:r + step], wc) * ws * dx[:, r:r + step]).sum(0)
+                   for r in range(0, q.shape[1], step)])
+    return y.reshape(*lead, out_dim)
+
+
 def _dequant(qw: QWeight) -> torch.Tensor:
     """(R, K) f32 from packed planes."""
     qk = qw.codes.shape[-1] // qw.scales.shape[-1]
@@ -86,7 +158,10 @@ def _dequant(qw: QWeight) -> torch.Tensor:
 def _mm(x: torch.Tensor, w, dtype) -> torch.Tensor:
     """x @ w with f32 accumulation; operands rounded to `dtype`.  A QWeightT
     goes through the streaming dequant kernel (ops/qmm.py qmmt); a QWeight
-    ((out, in) planes) is dequantized first."""
+    ((out, in) planes) is dequantized first; a QWGGML takes the parity
+    mode's integer block dots."""
+    if isinstance(w, QWGGML):
+        return _mm_ggml_q(x, w)
     if isinstance(w, QWeightT):
         return qmmt_auto(x, w, dtype)
     if isinstance(w, QWeight):
@@ -95,7 +170,7 @@ def _mm(x: torch.Tensor, w, dtype) -> torch.Tensor:
 
 
 def _mm_fused(x: torch.Tensor, w, dtype, *, ln=None, bias=None, res=None,
-              act=None, eps: float = 1e-5) -> torch.Tensor:
+              act=None, eps: float = 1e-5, parity: bool = False) -> torch.Tensor:
     """act(LN(x) @ w + bias) + res — ONE kernel launch for a packed QWeightT
     (ops/qmm.py qmmt_fused); otherwise the reference op sequence."""
     if isinstance(w, QWeightT):
@@ -106,7 +181,7 @@ def _mm_fused(x: torch.Tensor, w, dtype, *, ln=None, bias=None, res=None,
     if bias is not None:
         y = y + bias
     if act == "gelu":
-        y = _gelu(y)
+        y = _gelu(y, parity)
     if res is not None:
         y = y + res
     return y
@@ -126,9 +201,13 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              mask: Optional[torch.Tensor], dtype) -> torch.Tensor:
-    """q:(...,H,Tq,d) k,v:(...,H,Tk,d) mask additive f32 or None."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+              mask: Optional[torch.Tensor], dtype,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """q:(...,H,Tq,d) k,v:(...,H,Tk,d) mask additive f32 or None.  `scale`
+    overrides 1/sqrt(d) (the parity decode pre-scales q and k by d^-0.25
+    each and passes 1.0)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     scores = matmul_f32(q, k.transpose(-1, -2), dtype) * scale
     if mask is not None:
         scores = scores + mask
@@ -149,14 +228,17 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, stride: int, dtype) -> torch.Tenso
     return matmul_f32(cols, w.reshape(w.shape[0], -1).T, dtype)
 
 
-def conv_stem(enc_params: Dict[str, Any], mel: torch.Tensor, dtype) -> torch.Tensor:
+def conv_stem(enc_params: Dict[str, Any], mel: torch.Tensor, dtype,
+              parity: bool = False) -> torch.Tensor:
     """2x conv1d + GELU (whisper_build_graph_conv, src/whisper.cpp:2009-2021).
 
-    mel: (n_mels, 2*n_ctx) -> (n_ctx, n_state)"""
+    mel: (n_mels, 2*n_ctx) -> (n_ctx, n_state).  parity: dtype f16 (the
+    im2col product rounds the conv inputs to f16 as ggml's im2col does)
+    and GELU through the f16 table."""
     x = _gelu(_conv1d(mel, enc_params["conv1_w"], 1, dtype)
-              + enc_params["conv1_b"])                       # (W, S)
+              + enc_params["conv1_b"], parity)               # (W, S)
     return _gelu(_conv1d(x.T, enc_params["conv2_w"], 2, dtype)
-                 + enc_params["conv2_b"])
+                 + enc_params["conv2_b"], parity)
 
 
 def _segment_mask(t_pad: int, true_len: int, device) -> torch.Tensor:
@@ -184,14 +266,19 @@ def _enc_attn_route(dtype, t_pad: int, n_head: int, d_head: int) -> str:
 
 
 def _encoder_block(x: torch.Tensor, blk: Dict[str, torch.Tensor], n_head: int,
-                   eps: float, dtype, true_len: Optional[int] = None) -> torch.Tensor:
+                   eps: float, dtype, true_len: Optional[int] = None,
+                   parity: bool = False) -> torch.Tensor:
     """One pre-LN transformer block; rows true_len.. are junk padding kept
-    in their own attention segment."""
+    in their own attention segment.  parity: the reference's non-flash
+    attention, which casts K and V to f16 and so rounds Q and the softmax
+    probabilities to f16 at its two products: the plain graph at dtype f16
+    (src/whisper.cpp:2170-2193), never a kernel."""
     h = layer_norm(x, blk["attn_ln_w"], blk["attn_ln_b"], eps)
     n_state = x.shape[-1]
     qkv = _mm(h, blk["qkv_w"], dtype) + blk["qkv_b"]
     t_pad = qkv.shape[-2]
-    route = _enc_attn_route(dtype, t_pad, n_head, n_state // n_head)
+    route = "parity" if parity else _enc_attn_route(dtype, t_pad, n_head,
+                                                    n_state // n_head)
     if route == "qkv":
         merged = enc_attn.self_attention_qkv(
             qkv, n_head, true_len=true_len if true_len is not None else t_pad)
@@ -203,34 +290,43 @@ def _encoder_block(x: torch.Tensor, blk: Dict[str, torch.Tensor], n_head: int,
         else:
             m = (_segment_mask(t_pad, true_len, x.device)
                  if true_len is not None else None)
-            out = attention(qh, kh, vh, m, dtype)
+            out = attention(qh, kh, vh, m,
+                            torch.float16 if route == "parity" else dtype)
         merged = _merge_heads(out)
     x = x + _mm(merged, blk["o_w"], dtype) + blk["o_b"]
     h = layer_norm(x, blk["mlp_ln_w"], blk["mlp_ln_b"], eps)
-    h = _gelu(_mm(h, blk["mlp0_w"], dtype) + blk["mlp0_b"])
+    h = _gelu(_mm(h, blk["mlp0_w"], dtype) + blk["mlp0_b"], parity)
     return x + _mm(h, blk["mlp1_w"], dtype) + blk["mlp1_b"]
 
 
+def _at(v, l: int):
+    """Layer l of a stacked (L, ...) leaf: a tensor, or the planes of a
+    stacked QWGGML (the JAX package's tree_map over the pytree)."""
+    return QWGGML(v.codes[l], v.scales[l]) if isinstance(v, QWGGML) else v[l]
+
+
 def _layer(blocks: Dict[str, Any], l: int) -> Dict[str, Any]:
-    return {k: v[l] for k, v in blocks.items()}
+    return {k: _at(v, l) for k, v in blocks.items()}
 
 
 def encode(params: Dict[str, Any], mel: torch.Tensor, hp: WhisperHParams,
-           dtype=torch.bfloat16, pad_to: Optional[int] = None) -> torch.Tensor:
+           dtype=torch.bfloat16, pad_to: Optional[int] = None,
+           parity: bool = False) -> torch.Tensor:
     """mel (n_mels, 2*n_ctx) -> encoder embeddings (n_ctx, n_state).
 
     Padded residency: when the flash route is on (`use_flash`), the
     residual stream is padded ONCE to a multiple of 512 (1500 -> 1536) for
     the whole block stack and sliced back before ln_post; the pad rows are
     their own attention segment, so real rows are unaffected.  With flash
-    off (-nfa) the stream stays unpadded, as in the JAX package.  `pad_to`
-    forces a padded length."""
+    off (-nfa) the stream stays unpadded, as in the JAX package, and so it
+    does in the parity mode, which never takes a kernel.  `pad_to` forces a
+    padded length."""
     enc = params["enc"]
-    x = conv_stem(enc, mel, dtype)
+    x = conv_stem(enc, mel, dtype, parity)
     n_ctx = x.shape[0]
     x = x + enc["pos_embd"][:n_ctx]
     tp = pad_to
-    if tp is None and flash.use_flash(n_ctx, dtype):
+    if tp is None and not parity and flash.use_flash(n_ctx, dtype):
         tp = flash._round_up(max(n_ctx, 512), 512)
     true_len = None
     if tp is not None and tp > n_ctx:
@@ -238,7 +334,7 @@ def encode(params: Dict[str, Any], mel: torch.Tensor, hp: WhisperHParams,
         true_len = n_ctx
     for l in range(hp.n_audio_layer):
         x = _encoder_block(x, _layer(enc["blocks"], l), hp.n_audio_head, hp.eps,
-                           dtype, true_len=true_len)
+                           dtype, true_len=true_len, parity=parity)
     return layer_norm(x[:n_ctx], enc["ln_post_w"], enc["ln_post_b"], hp.eps)
 
 
@@ -261,23 +357,32 @@ def _quantize_rows(x: torch.Tensor):
 
 
 def compute_cross_kv(params: Dict[str, Any], enc_out: torch.Tensor,
-                     hp: WhisperHParams, dtype=torch.bfloat16, itype: str = "f16"):
+                     hp: WhisperHParams, dtype=torch.bfloat16, itype: str = "f16",
+                     parity: bool = False):
     """Cross-attention K/V for every decoder layer, (n_text_layer, n_head,
-    n_audio_ctx, d_head): dense f32 (itype='f16') or XK8 planes ('q8')."""
+    n_audio_ctx, d_head): dense f32 (itype='f16') or XK8 planes ('q8').
+
+    parity: K pre-scaled by d^-0.25 (the reference scales before its f16
+    kv_cross store, src/whisper.cpp:2304-2314) and both planes stored as
+    f16, whatever `itype`."""
     blocks = params["dec"]["blocks"]
     ks, vs = [], []
     for l in range(hp.n_text_layer):
-        ks.append(_split_heads(_mm(enc_out, blocks["xk_w"][l], dtype), hp.n_text_head))
-        vs.append(_split_heads(_mm(enc_out, blocks["xv_w"][l], dtype)
+        ks.append(_split_heads(_mm(enc_out, _at(blocks["xk_w"], l), dtype),
+                               hp.n_text_head))
+        vs.append(_split_heads(_mm(enc_out, _at(blocks["xv_w"], l), dtype)
                                + blocks["xv_b"][l], hp.n_text_head))
     xk, xv = torch.stack(ks), torch.stack(vs)
+    if parity:
+        d_head = hp.n_text_state // hp.n_text_head
+        return (xk * float(d_head) ** -0.25).half(), xv.half()
     if itype == "q8":
         return XK8(*_quantize_rows(xk)), XK8(*_quantize_rows(xv))
     return xk, xv
 
 
 def cross_attend(qh: torch.Tensor, ck, cv, dtype, group: int = 1,
-                 return_probs: bool = False):
+                 return_probs: bool = False, scale: Optional[float] = None):
     """Cross-attention of qh (..., H, Tq, d) against dense (..., H, Tc, d)
     or XK8 planes; every encoder position is visible.  return_probs: also
     the softmax weights (..., H, Tq, Tc), for DTW (decoding/dtw.py; one
@@ -287,13 +392,19 @@ def cross_attend(qh: torch.Tensor, ck, cv, dtype, group: int = 1,
     hold one plane per window, (W, H, Tc, d).  A window's lanes share its
     planes: their queries fold into the query axis, (W, H, group * Tq, d),
     so the planes are read once per window and never copied per lane (the
-    JAX package broadcasts them over a lane axis, model.py xkv_group)."""
+    JAX package broadcasts them over a lane axis, model.py xkv_group).
+
+    `scale` overrides 1/sqrt(d): the parity mode stores K pre-scaled by
+    d^-0.25 and applies the second d^-0.25 on the scores (soft_max_ext's
+    scale, src/whisper.cpp:2723)."""
     if group > 1:
         R, H, T, d = qh.shape
         q = qh.reshape(R // group, group, H, T, d).transpose(1, 2)
-        out = cross_attend(q.reshape(R // group, H, group * T, d), ck, cv, dtype)
+        out = cross_attend(q.reshape(R // group, H, group * T, d), ck, cv, dtype,
+                           scale=scale)
         return out.reshape(R // group, H, group, T, d).transpose(1, 2).reshape(R, H, T, d)
-    scale = 1.0 / math.sqrt(qh.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(qh.shape[-1])
     if isinstance(ck, XK8):
         scores = matmul_f32(qh, ck.codes.transpose(-1, -2), dtype)
         scores = scores * ck.scale.unsqueeze(-2) * scale
@@ -369,7 +480,8 @@ def decode_mask(kv_head, n_tok: int, A: int, device, attn_mask=None):
 def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
                 positions: torch.Tensor, kv_head: int, cache, xk, xv,
                 hp: WhisperHParams, dtype=torch.bfloat16, attn_mask=None,
-                attn_ctx: Optional[int] = None, xkv_group: int = 1):
+                attn_ctx: Optional[int] = None, xkv_group: int = 1,
+                parity: bool = False):
     """One batched decoder forward over all lanes (whisper_build_graph_decoder,
     src/whisper.cpp:2464-2842).
 
@@ -385,7 +497,15 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     xkv_group > 1: rows are windows of xkv_group lanes, window-major, and
     xk/xv hold one cross-K/V per window, (L, W, H, Tc, d), which the lanes
     share (`cross_attend`).  Returns (logits (n_beam, n_tok, n_vocab) f32,
-    the cache updated in place)."""
+    the cache updated in place).
+
+    parity: the ggml-CPU f16 emulation (dtype f16, an f16 cache): q and the
+    new K column are pre-scaled by d^-0.25 before their f16 roundings, as
+    ggml scales Kcur before its cpy into the f16 kv_self
+    (src/whisper.cpp:2549-2565), so self-attention runs at scale 1;
+    cross-attention K arrives pre-scaled (compute_cross_kv) and takes the
+    second d^-0.25 on its scores; GELU goes through the f16 table; a
+    QWGGML token embedding feeds the lookup and the logits head."""
     dec = params["dec"]
     n_beam, n_tok = tokens.shape
     n_head = hp.n_text_head
@@ -396,9 +516,17 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     device = tokens.device
 
     tok_embd = dec["tok_embd"]
-    emb = embed_lookup(tok_embd, tokens) if isinstance(tok_embd, QWeight) \
-        else tok_embd[tokens]
+    if isinstance(tok_embd, QWGGML):
+        # ggml get_rows dequantizes the quantized embedding rows exactly:
+        # code * f32(f16(d)) per 32-block
+        rows, scl = tok_embd.codes[tokens], tok_embd.scales[tokens]
+        emb = (rows.unflatten(-1, (scl.shape[-1], 32)) * scl[..., None]).flatten(-2)
+    elif isinstance(tok_embd, QWeight):
+        emb = embed_lookup(tok_embd, tokens)
+    else:
+        emb = tok_embd[tokens]
     x = (emb + dec["pos_embd"][positions]).float()
+    kq_scale = float(d_head) ** -0.25
 
     A = n_ctx if attn_ctx is None else min(attn_ctx, n_ctx)
     mask = decode_mask(kv_head, n_tok, A, device, attn_mask)
@@ -428,8 +556,13 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
         qkv = _mm_fused(x, blk["qkv_w"], dtype,
                         ln=(blk["attn_ln_w"], blk["attn_ln_b"]),
                         bias=blk["qkv_b"], eps=eps)
-        qh = _split_heads(qkv[..., :n_state], n_head)
+        q = qkv[..., :n_state]
         kv2 = qkv[..., n_state:].reshape(n_beam, n_tok, 2, n_state)
+        if parity:
+            # K scaled before the f16 cache store, q before its f16 product
+            q = q * kq_scale
+            kv2 = torch.stack((kv2[:, :, 0] * kq_scale, kv2[:, :, 1]), 2)
+        qh = _split_heads(q, n_head)
         if is_q8:
             codes, sc = _quantize_rows(kv2)                 # (B,T,2,S), (B,T,2)
             cache.kv[l].index_copy_(3, cells, to_col(codes))
@@ -449,16 +582,18 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
         else:
             cache.kv[l].index_copy_(3, cells, to_col(kv2).to(cache.kv.dtype))
             kv_l = cache.kv[l]
-            out = attention(qh, kv_l[:, :, 0, :A], kv_l[:, :, 1, :A], mask, dtype)
+            out = attention(qh, kv_l[:, :, 0, :A], kv_l[:, :, 1, :A], mask, dtype,
+                            scale=1.0 if parity else None)
         x = _mm_fused(_merge_heads(out), blk["o_w"], dtype, bias=blk["o_b"], res=x)
         q = _mm_fused(x, blk["xq_w"], dtype,
                       ln=(blk["xattn_ln_w"], blk["xattn_ln_b"]),
                       bias=blk["xq_b"], eps=eps)
-        out = cross_attend(_split_heads(q, n_head), cxk, cxv, dtype, group=xkv_group)
+        out = cross_attend(_split_heads(q, n_head), cxk, cxv, dtype, group=xkv_group,
+                           scale=kq_scale if parity else None)
         x = _mm_fused(_merge_heads(out), blk["xo_w"], dtype, bias=blk["xo_b"], res=x)
         h = _mm_fused(x, blk["mlp0_w"], dtype,
                       ln=(blk["mlp_ln_w"], blk["mlp_ln_b"]),
-                      bias=blk["mlp0_b"], act="gelu", eps=eps)
+                      bias=blk["mlp0_b"], act="gelu", eps=eps, parity=parity)
         x = _mm_fused(h, blk["mlp1_w"], dtype, bias=blk["mlp1_b"], res=x)
 
     if isinstance(tok_embd, QWeight) and dec.get("tok_embd_t") is not None:
@@ -467,6 +602,9 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
                            ln=(dec["ln_w"], dec["ln_b"]), eps=eps)
     else:
         x = layer_norm(x, dec["ln_w"], dec["ln_b"], eps)
-        w = _dequant(tok_embd) if isinstance(tok_embd, QWeight) else tok_embd
-        logits = _mm(x, w.T, dtype)
+        if isinstance(tok_embd, QWGGML):
+            logits = _mm(x, tok_embd, dtype)       # file orientation (V, S)
+        else:
+            w = _dequant(tok_embd) if isinstance(tok_embd, QWeight) else tok_embd
+            logits = _mm(x, w.T, dtype)
     return logits.float(), cache

@@ -20,6 +20,9 @@ import torch
 # ceil(A / CLUSTER) cache cells; chip_smoke.py times 1, 2, 4 and 8
 CLUSTER = 8
 
+# the kernel's rounding mode for each compute type (f16: the parity mode)
+ROUND_TO = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 
 def use_kernel() -> bool:
     """Route decode_step's q8 self-attention through this kernel?
@@ -76,7 +79,7 @@ def self_attend_q8(kv: torch.Tensor, scale: torch.Tensor, qh: torch.Tensor,
     from . import _cuda
     from .qmm import _check
 
-    if dtype not in (torch.bfloat16, torch.float32):
+    if dtype not in ROUND_TO:
         raise ValueError(f"self_attend_q8: compute dtype {dtype} not supported")
     if two != 2 or d not in (16, 32, 64, 128) or not (1 <= A <= C) \
             or not (0 <= l < L) or CLUSTER not in (1, 2, 4, 8):
@@ -96,7 +99,7 @@ def self_attend_q8(kv: torch.Tensor, scale: torch.Tensor, qh: torch.Tensor,
     rc = lib.wtt_self_attend_q8(P(kv), P(scale), P(qh),
                                 int(qh.dtype == torch.bfloat16), *qh.stride()[:3],
                                 P(mask), P(out), B, H, G, C, d, A, l,
-                                int(dtype == torch.bfloat16), CLUSTER,
+                                ROUND_TO[dtype], CLUSTER,
                                 _cuda.stream_of(kv))
     _cuda.check(lib, "wtt_self_attend_q8", rc)
     self_attend_q8.launches += 1

@@ -6,6 +6,13 @@ unless the caller passes device="cpu"; with no card it raises instead of
 carrying on on the CPU.  The compute type is bf16 on the card (as on the
 TPU) and f32 on the CPU (as the JAX package off the TPU).
 
+precision="ggml_cpu_f16" is the JAX package's parity mode: it emulates the
+reference CPU backend's numerics (f16 weights and activations, f16 caches,
+the f16 GELU table and, for q4_0/q5_0/q8_0 files, Q8_0 activation rows with
+integer block dots, models/whisper/model.py `_mm_ggml_q`), so its
+transcript can be diffed against the reference binary's.  It takes no
+kernel, and on the card it computes inside decoding/graphs.py `full_f32`.
+
 Every device section holds decoding/graphs.py's DEVICE_LOCK, so contexts
 cloned for concurrent requests (`clone_state`, runtime/batching.py) can
 run in threads of their own.
@@ -13,6 +20,7 @@ run in threads of their own.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from dataclasses import dataclass
@@ -23,11 +31,12 @@ import torch
 
 from ..audio.mel import LogMel
 from ..decoding import device_loop as DL
-from ..decoding.graphs import DEVICE_LOCK
+from ..decoding.graphs import DEVICE_LOCK, full_f32
 from ..decoding.logits import LogitFilterTables
 from ..models.whisper import model as M
 from ..models.whisper.convert import params_from_numpy
-from ..models.whisper.load import WhisperModel, build_qweight_overlay, load_model
+from ..models.whisper.load import (WhisperModel, build_parity_overlay,
+                                   build_qweight_overlay, load_model)
 from ..ops.qmm import QWeight, pitch_qweight_t
 from .timings import Timings
 
@@ -85,10 +94,7 @@ class WhisperContext:
                  use_packed_weights=None, kv_itype: str = "f16",
                  cross_itype: str = "f16", precision: Optional[str] = None,
                  mel_backend: str = "auto"):
-        if precision == "ggml_cpu_f16":
-            raise NotImplementedError(
-                "precision='ggml_cpu_f16' (ggml-CPU parity mode) is not ported")
-        if precision not in (None, "default"):
+        if precision not in (None, "default", "ggml_cpu_f16"):
             raise ValueError(f"unknown precision mode {precision!r}")
         if kv_itype not in ("f16", "q8") or cross_itype not in ("f16", "q8"):
             raise ValueError(f"kv_itype/cross_itype must be 'f16' or 'q8', got "
@@ -99,9 +105,11 @@ class WhisperContext:
         self.hp = model.hparams
         self.vocab = model.vocab
         self.is_empty = model.is_empty
+        self.parity = precision == "ggml_cpu_f16"
         self.compute_dtype = compute_dtype or (
+            torch.float16 if self.parity else
             torch.bfloat16 if on_card else torch.float32)
-        self.cache_dtype = torch.float32
+        self.cache_dtype = torch.float16 if self.parity else torch.float32
         self.kv_itype = kv_itype
         self.cross_itype = cross_itype
         # packed path for quantized files: the decoder's hot matmuls and the
@@ -111,23 +119,31 @@ class WhisperContext:
         # the CPU (dense f32 there, as the JAX package off the TPU).
         if use_packed_weights is None:
             use_packed_weights = on_card
-        self.use_packed_weights = bool(use_packed_weights and model.qparams)
+        self.use_packed_weights = bool(use_packed_weights and model.qparams
+                                       and not self.parity)
         overlay = (build_qweight_overlay(model.qparams, self.hp)
                    if self.use_packed_weights else None)
+        # the parity mode on a quantized file: every quantized matmul weight
+        # and the token embedding become centred-code planes (QWGGML) for
+        # the reference's integer block dots
+        parity_overlay = (build_parity_overlay(model.qparams, self.hp)
+                          if self.parity and model.qparams else None)
         with DEVICE_LOCK:
             self.params = (None if model.is_empty
                            else params_from_numpy(model.params, self.device))
             if overlay is not None:
                 self._install_packed(overlay)
+            if parity_overlay is not None:
+                self._install_parity(parity_overlay)
             if self.params is not None and self.compute_dtype != torch.float32:
                 self.params = _cast_matmul_weights(self.params, self.compute_dtype)
 
         # mel backend: "auto" runs the batched-rfft device mel on the card
         # (FFT rounding ~1e-6 relative from the reference-exact numpy path)
-        # and the numpy mel on the CPU, as the JAX package takes its device
-        # mel only on the TPU
+        # and the numpy mel on the CPU and in the parity mode, as the JAX
+        # package takes its device mel only on the TPU outside that mode
         if mel_backend == "auto":
-            mel_backend = "torch" if on_card else "numpy"
+            mel_backend = "torch" if on_card and not self.parity else "numpy"
         self.mel_fn = LogMel(model.filters.data, backend=mel_backend,
                              device=self.device)
         self.timings = ContextTimings()
@@ -193,6 +209,22 @@ class WhisperContext:
             # transposed copy for the logits head's streaming kernel
             self.params["dec"]["tok_embd_t"] = planes_t(codes, scales, mins)
 
+    def _install_parity(self, overlay) -> None:
+        def planes(codes, scales):
+            return M.QWGGML(*(torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device, torch.float32) for a in (codes, scales)))
+
+        for part, key in (("enc", "enc_blocks"), ("dec", "dec_blocks")):
+            for k, (codes, scales) in overlay[key].items():
+                self.params[part]["blocks"][k] = planes(codes, scales)
+        self.params["dec"]["tok_embd"] = planes(*overlay["tok_embd"])
+
+    def numerics(self):
+        """The context the parity mode computes in on the card
+        (graphs.full_f32: no TF32, no reduced-precision f16 reductions);
+        nothing otherwise.  Enter it under DEVICE_LOCK."""
+        return full_f32() if self.parity else contextlib.nullcontext()
+
     @staticmethod
     def from_file(path: str, **kw) -> "WhisperContext":
         return WhisperContext(load_model(path), **kw)
@@ -225,12 +257,12 @@ class WhisperContext:
         i1 = min(seek + 2 * n_ctx, self.n_len)
         if i1 > seek:
             window[:, : i1 - seek] = self.mel[:, seek:i1]
-        with DEVICE_LOCK:
+        with DEVICE_LOCK, self.numerics():
             enc = M.encode(self.params, torch.from_numpy(window).to(self.device),
-                           hp, dtype=self.compute_dtype)
+                           hp, dtype=self.compute_dtype, parity=self.parity)
             self.xk, self.xv = M.compute_cross_kv(
                 self.params, enc, hp, dtype=self.compute_dtype,
-                itype=self.cross_itype)
+                itype=self.cross_itype, parity=self.parity)
             self._sync()
         self.timings.t_encode_us += int((time.perf_counter() - t0) * 1e6)
         self.timings.n_encode += 1
@@ -299,7 +331,8 @@ class WhisperContext:
             fn = self._window_fns[dkey] = DL.make_window_decoder(
                 self.hp, n_beams, bt, self.compute_dtype, no_timestamps,
                 single_segment, self.vocab.token_eot, self.vocab.token_beg,
-                kv_itype=self.kv_itype, strategy=strategy, n_windows=n_windows)
+                kv_itype=self.kv_itype, strategy=strategy, n_windows=n_windows,
+                parity=self.parity)
         return fn
 
     def _decode_window_exec(self, key, *args) -> Tuple[DL.WindowResult,
@@ -336,11 +369,12 @@ class WhisperContext:
         t0 = time.perf_counter()
         attn_ctx = next(a for a in M.attn_ctx_buckets(self.hp.n_text_ctx)
                         if a >= min(n_past + bt, self.hp.n_text_ctx))
-        with DEVICE_LOCK:
+        with DEVICE_LOCK, self.numerics():
             logits, cache = M.decode_step(
                 self.params, torch.from_numpy(toks).to(self.device),
                 torch.from_numpy(pos).to(self.device), n_past, cache, self.xk,
-                self.xv, self.hp, dtype=self.compute_dtype, attn_ctx=attn_ctx)
+                self.xv, self.hp, dtype=self.compute_dtype, attn_ctx=attn_ctx,
+                parity=self.parity)
             out = logits[:, n_tok - 1].cpu().numpy()
         dt = int((time.perf_counter() - t0) * 1e6)
         if n_tok == 1 and n_beam == 1:
