@@ -66,7 +66,25 @@ Phases (any failure exits non-zero; nothing is caught):
      defaults (beam 5), then with --kv-itype q8 (K1 launched, and K3 under
      q8); and on a small decisive model the card against the CPU: parity on
      q5_0 and f16 files (greedy, beam 5, and greedy with the q8 cache, K3
-     at f16), grammars greedy and beam 5, identical segments.
+     at f16), grammars greedy and beam 5, identical segments;
+ 10. the rest of the CLIs and the format tools, on the turbo file and the
+     40 s of phase 4: whisper-stream's `run_stream` with --step 3000
+     --length 10000, the same with -ac 768 (K4 at 768 frames), and the
+     VAD mode (--step 0) on an 8 s clip played in real time on a
+     simulated clock (ms per step, K1 and K4 launches); whisper-command's
+     guided scores of 8 words; whisper-bench -w 0 -m large-v3-turbo (its
+     JSON line, with the Parakeet rows; K1, K3, K4 launched); the imatrix
+     capture (cli/make_imatrix.py, on the card) of a turbo-width f16 file
+     with 4 of the 32 encoder layers, and greedy `transcribe()` of that
+     file quantized to q4_k (K1 on affine planes; K1 per decode step on
+     q4_k against q5_0 planes); then on small decisive models the card
+     against the CPU: whisper-stream (the three modes), whisper-command
+     (guided and --grammar), whisper-talk (a local --llm-cmd),
+     whisper-lsp (its framing), wchess, the imatrix capture, and q4_k and
+     iq2_xxs files (the card's imatrix) loaded on both.  The q4_k and
+     iq2_xxs whisper-quantize runs (host numpy, minutes) start in the
+     background after phase 2 ("2b") and are killed if the script exits
+     before phase 10 waits for them.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -74,8 +92,10 @@ The last lines are the kernels JSON, the card's name and power limit, and
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -2235,6 +2255,489 @@ def check_parity_grammar(W, M, TC, counters, path: str, wav: str, pcm: np.ndarra
     return g_q8
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the CLIs and the format tools
+# ---------------------------------------------------------------------------
+
+COMMAND_WORDS = ["red", "green", "blue", "yellow", "stop", "start", "left", "right"]
+# the small decisive model of phase 5
+SMALL_DIMS = dict(n_vocab=51865, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2,
+                  n_audio_layer=2, n_text_ctx=448, n_text_state=128, n_text_head=2,
+                  n_text_layer=3, n_mels=80)
+# a small decisive model 256 wide: K-quant and grid-format rows hold whole
+# 256-blocks
+IQ_DIMS = dict(SMALL_DIMS, n_audio_state=256, n_audio_head=4, n_audio_layer=1,
+               n_text_state=256, n_text_head=4, n_text_layer=2)
+# the turbo file of the imatrix capture and the q4_k transcription: full
+# widths, vocabulary and decoder, 4 of the 32 encoder layers (numpy's q4_k
+# encoder takes ~1 us an element on one core: the full file's 0.8 G
+# elements would take some 13 minutes)
+TURBO_CUT_ENC_LAYERS = 4
+
+
+class SimClock:
+    """Stands in for the `time` module of a voice CLI and of cli/stream.py's
+    file source: `sleep` advances `monotonic`, nothing else does.  The
+    tools' loops then play a file back in real time without waiting for
+    it, and the same way in every run."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def monotonic(self) -> float:
+        return self.t
+
+    def sleep(self, s: float) -> None:
+        self.t += s
+
+
+@contextlib.contextmanager
+def patched(*triples):
+    """setattr(obj, name, value) for each triple, undone on exit."""
+    old = [(o, n, getattr(o, n)) for o, n, _ in triples]
+    for o, n, v in triples:
+        setattr(o, n, v)
+    try:
+        yield
+    finally:
+        for o, n, v in old:
+            setattr(o, n, v)
+
+
+def voice_clip(pcm: np.ndarray, seconds: float, tail: float = 1.5) -> np.ndarray:
+    """The first `seconds` of `pcm` with its last `tail` seconds made quiet,
+    so the energy VAD (audio/energy_vad.py) sees speech end there."""
+    x = pcm[:int(16000 * seconds)].copy()
+    x[len(x) - int(16000 * tail):] *= 0.02
+    return x
+
+
+def stream_args(**kw):
+    """whisper-stream's parsed flags, at its defaults, with -nf."""
+    import argparse
+
+    a = dict(step=3000, length=10000, keep=200, no_context=True, vad_thold=0.6,
+             freq_thold=100.0, beam_size=-1, translate=False, max_tokens=32,
+             language="en", audio_ctx=0, no_fallback=True)
+    a.update(kw)
+    return argparse.Namespace(**a)
+
+
+STREAM_MODES = {"fixed": dict(step=3000, length=10000),
+                "fixed_ac768": dict(step=3000, length=10000, audio_ctx=768),
+                "vad": dict(step=0, length=10000)}
+
+
+def stream_run(TS, ctx, wav: str, mode: str):
+    """`run_stream` of whisper-stream on `ctx` over `wav`: fixed-step modes
+    read the file with --no-realtime, the VAD mode plays it back in real
+    time on a SimClock (with --no-realtime it would read the whole file
+    before its first 2 s and never transcribe).  Returns the printed
+    output and each transcription's ms (host clock, its readback
+    included)."""
+    args = stream_args(**STREAM_MODES[mode])
+    realtime = mode == "vad"
+    inner, steps = TS.transcribe, []
+
+    def timed(c, params, pcm):
+        t0 = time.perf_counter()
+        segs = inner(c, params, pcm)
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return segs
+
+    buf = io.StringIO()
+    swaps = [(TS, "transcribe", timed)] + ([(TS, "time", SimClock())] if realtime else [])
+    with patched(*swaps):
+        source = TS.FileAudioSource(wav, max(args.length, 30000), realtime=realtime)
+        assert TS.run_stream(ctx, source, args, out=buf) == 0
+    return buf.getvalue(), steps
+
+
+def stream_turbo(TS, counters, ctx, wav: str, wav_vad: str) -> dict:
+    """whisper-stream on the turbo file: fixed step, fixed step with -ac
+    768 (K4 at 768 frames, padded to 1024), VAD mode on an 8 s clip."""
+    out = {}
+    for mode in STREAM_MODES:
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        text, steps = stream_run(TS, ctx, wav_vad if mode == "vad" else wav, mode)
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        lines = [ln for ln in text.replace("\33[2K\r", "\n").splitlines() if ln.strip()]
+        log(f"  [stream {mode}] steps={len(steps)} ms_per_step median="
+            f"{float(np.median(steps)):.3f} min={min(steps):.3f} max={max(steps):.3f} "
+            f"all={[round(s, 3) for s in steps]} wall_s={wall:.3f} "
+            f"qmmt_fused={launches['qmmt_fused']} "
+            f"self_attention_qkv={launches['self_attention_qkv']}")
+        for ln in lines[:3]:
+            log(f"    {ln[:120]!r}")
+        assert steps and lines, text
+        assert launches["qmmt_fused"] > 0 and launches["self_attention_qkv"] > 0, launches
+        out[mode] = launches
+    return out
+
+
+def command_turbo(TCMD, counters, ctx, pcm: np.ndarray) -> None:
+    """whisper-command's guided scoring (ctx.decode: one prompt pass, then
+    each command's tokens one step at a time) on the turbo file, 8 words,
+    8 s of audio."""
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    scores = TCMD.score_commands(ctx, pcm[:16000 * 8], COMMAND_WORDS)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    best = int(np.argmax(scores))
+    log(f"  [command] scores={dict(zip(COMMAND_WORDS, [round(s, 4) for s in scores]))} "
+        f"choice={COMMAND_WORDS[best]!r} wall_s={wall:.3f} "
+        f"qmmt_fused={launches['qmmt_fused']} "
+        f"self_attention_qkv={launches['self_attention_qkv']}")
+    assert all(np.isfinite(scores)) and launches["qmmt_fused"] > 0
+
+
+def bench_turbo(BM, counters) -> dict:
+    """whisper-bench -w 0 -m large-v3-turbo (its rows and the Parakeet
+    rows): the JSON line, and each kernel's launches in it."""
+    for fn in counters:
+        fn.launches = 0
+    env = {k: os.environ.get(k) for k in ("WTPU_BENCH_MODEL", "WTPU_BENCH_PARAKEET")}
+    os.environ["WTPU_BENCH_MODEL"] = "large-v3-turbo"
+    os.environ["WTPU_BENCH_PARAKEET"] = "1"
+    t0 = time.perf_counter()
+    try:
+        rows = BM.main()
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  [bench -w 0] wall_s={time.perf_counter() - t0:.1f} launches={json.dumps(launches)}")
+    for k in ("qmmt_fused", "self_attend_q8", "self_attention_qkv"):
+        assert launches[k] > 0, launches
+    assert all(np.isfinite(v) and v > 0 for k, v in rows.items() if k.endswith("_ms"))
+    return launches
+
+
+def start_quantize(src: str, dst: str, ftype: str, imatrix=None) -> dict:
+    """The port's whisper-quantize of `src` in a process of its own, its
+    output to `dst`.log; the numpy encoders run on one host core while the
+    card runs the other phases (phase 10 waits for them)."""
+    logf = open(dst + ".log", "w")
+    cmd = ["nice", "-n", "19", sys.executable, "-m", "whisper_tpu_torch.cli.quantize",
+           src, dst, ftype]
+    if imatrix:
+        cmd += ["--imatrix", imatrix]
+    # one thread each, at the lowest priority: the jobs share the host
+    # with the phases' host work, which they must not slow
+    env = dict(os.environ, OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, cwd=str(Path(__file__).resolve().parent),
+                            stdout=logf, stderr=subprocess.STDOUT, env=env)
+    return {"proc": proc, "log": logf, "dst": dst, "ftype": ftype,
+            "t0": time.perf_counter()}
+
+
+def finish_quantize(job: dict, timeout: float) -> float:
+    """Wait for a start_quantize job; returns the quantize's own total
+    seconds (its "total time" line)."""
+    t0 = time.perf_counter()
+    rc = job["proc"].wait(timeout=timeout)
+    job["log"].close()
+    with open(job["dst"] + ".log") as f:
+        text = f.read()
+    assert rc == 0, text[-3000:]
+    total_s = float(text.rsplit("total time = ", 1)[1].split()[0]) / 1e3
+    log(f"  [quantize {os.path.basename(job['dst'])}] {job['ftype']} total_s={total_s:.1f} "
+        f"waited_s={time.perf_counter() - t0:.1f} bytes={os.path.getsize(job['dst'])} "
+        f"({text.strip().splitlines()[-2].strip()})")
+    return total_s
+
+
+def stop_jobs(jobs) -> None:
+    for job in jobs:
+        if job["proc"].poll() is None:
+            job["proc"].kill()
+            job["proc"].wait()
+        job["log"].close()
+
+
+def capture_imatrix(MI, path: str, wav: str, device: str, steps: int = 32):
+    """make-imatrix's capture of `path` over `wav` on `device`: (the
+    collector, its seconds, the launches of K1-K6 in it)."""
+    from whisper_tpu_torch.decoding.graphs import COUNTED
+    from whisper_tpu_torch.models.whisper.load import load_model
+
+    model = load_model(path)
+    for fn in COUNTED:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    coll = MI.capture(model, [wav], steps, torch.device(device), log=lambda *a, **k: None)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return coll, time.perf_counter() - t0, {fn.__name__: fn.launches for fn in COUNTED}
+
+
+def imatrix_card_matches_cpu(MI, path: str, wav: str, card=None) -> dict:
+    """The capture on the card (`card`: one made already) against the CPU:
+    the same tensors, `ncalls` equal, each tensor's sums within 1e-4 of its
+    largest (f32 products in other orders; the card sums in f64, the CPU
+    in numpy's f32).  Returns the card's sums.  tests/test_torch_gpu.py
+    runs this same check."""
+    if card is None:
+        card = capture_imatrix(MI, path, wav, "cuda")[0]
+    cpu = capture_imatrix(MI, path, wav, "cpu")[0]
+    a, b = MI.host_sums(card), MI.host_sums(cpu)
+    assert list(a) == list(b) and card.ncalls == cpu.ncalls
+    err = max(float(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max()) for k in a)
+    log(f"  [imatrix card vs cpu] tensors={len(a)} ncalls equal, max |card - cpu| / "
+        f"max |cpu| per tensor={err:.3e} (bound 1e-4)")
+    assert err <= 1e-4, err
+    return a
+
+
+def stream_card_matches_cpu(TS, card_ctx, cpu_ctx, wavs, modes=tuple(STREAM_MODES)) -> None:
+    """whisper-stream's output on the card and on the CPU (bf16, packed
+    planes), identical, in each of `modes`.  tests/test_torch_gpu.py runs
+    the -ac 768 mode."""
+    for mode in modes:
+        a, steps = stream_run(TS, card_ctx, wavs[mode], mode)
+        b, _ = stream_run(TS, cpu_ctx, wavs[mode], mode)
+        log(f"  [stream {mode} card vs cpu] steps={len(steps)} identical={a == b} "
+            f"{a.replace(chr(27) + '[2K', '').strip()[:100]!r}")
+        assert a == b and steps and a.strip(), (a, b)
+
+
+def voice_tools_card_matches_cpu(mods, card_ctx, cpu_ctx, wav: str, tmp: str) -> None:
+    """whisper-command (guided scores within 1e-3 of each score and the
+    same choice: both sides round activations to bf16, in other orders, so
+    a score of ~-30 moves by ~1e-2; the grammar mode's printed lines), whisper-talk (a local --llm-cmd),
+    whisper-lsp (guided and unguided requests through its Content-Length
+    framing) and wchess (one move) on the card and on the CPU, each main
+    given the context and run on a SimClock."""
+    TS, TCMD, TTALK, TLSP, TCH = mods
+    pcm = voice_clip(seeded_audio(5.0, seed=3), 5.0)
+    sa = TCMD.score_commands(card_ctx, pcm, COMMAND_WORDS)
+    sb = TCMD.score_commands(cpu_ctx, pcm, COMMAND_WORDS)
+    d = float(np.max(np.abs(np.subtract(sa, sb)) / np.abs(sb)))
+    log(f"  [command guided card vs cpu] choice={COMMAND_WORDS[int(np.argmax(sa))]!r} "
+        f"scores card={[round(x, 4) for x in sa]} cpu={[round(x, 4) for x in sb]} "
+        f"max |card - cpu| / |cpu|={d:.3e} (bound 1e-3)")
+    assert int(np.argmax(sa)) == int(np.argmax(sb)) and d <= 1e-3, (sa, sb)
+
+    grammar = os.path.join(tmp, "colors.gbnf")
+    with open(grammar, "w") as f:
+        f.write('root ::= " " color "."\ncolor ::= "red" | "green" | "blue" | "stop"\n')
+    runs = {"command --grammar": (TCMD, ["--grammar", grammar]),
+            "talk": (TTALK, ["--no-realtime", "-p", "Sam", "-bn", "Echo",
+                             "--llm-cmd", "head -c 32", "-vms", "4000"]),
+            "wchess": (TCH, [])}
+    for name, (mod, flags) in runs.items():
+        outs = []
+        for ctx in (card_ctx, cpu_ctx):
+            fixed = type("Fixed", (), {"from_file": staticmethod(lambda *a, **k: ctx)})
+            clock = SimClock()
+            buf = io.StringIO()
+            with patched((mod, "WhisperContext", fixed), (mod, "time", clock),
+                         (TS, "time", clock)), contextlib.redirect_stdout(buf):
+                assert mod.main(["-m", "unused", "-f", wav, *flags]) == 0
+            outs.append(buf.getvalue())
+        log(f"  [{name} card vs cpu] identical={outs[0] == outs[1]} "
+            f"{outs[0].strip().splitlines()[-1][:100]!r}")
+        assert outs[0] == outs[1] and outs[0].strip(), outs
+
+    calls = [{"jsonrpc": "2.0", "id": 1, "method": "registerCommandset",
+              "params": COMMAND_WORDS},
+             {"jsonrpc": "2.0", "id": 2, "method": "guided", "params": {"commandset_index": 0}},
+             {"jsonrpc": "2.0", "id": 3, "method": "unguided", "params": {}}]
+    outs = []
+    for ctx in (card_ctx, cpu_ctx):
+        source = TLSP.FileAudioSource(wav, 30000, realtime=False)
+        while not source.done:
+            source.poll()
+        server = TLSP.LspServer(ctx, source)
+        rx, tx = io.BytesIO(), io.BytesIO()
+        for c in calls:
+            TLSP.write_message(rx, c)
+        rx.seek(0)
+        while (body := TLSP.read_message(rx)) is not None:
+            TLSP.write_message(tx, server.dispatch(body))
+        outs.append(tx.getvalue())
+    log(f"  [lsp card vs cpu] identical={outs[0] == outs[1]} {outs[0][-160:]!r}")
+    assert outs[0] == outs[1] and b'"command_text"' in outs[0]
+
+
+def quantized_card_matches_cpu(W, paths, pcm: np.ndarray) -> None:
+    """Each quantized file loaded on the card and on the CPU (bf16, packed
+    planes where the format has them): identical greedy segments."""
+    for name, path in paths.items():
+        card = W.load(path)
+        cpu = W.load(path, device="cpu", use_packed_weights=True,
+                      compute_dtype=torch.bfloat16)
+        p = W.TranscribeParams(temperature_inc=0.0)
+        a = [(s.t0, s.t1, s.text) for s in W.transcribe(card, p, pcm)]
+        b = [(s.t0, s.t1, s.text) for s in W.transcribe(cpu, p, pcm)]
+        log(f"  [{name} card vs cpu] packed={card.use_packed_weights} segments={a[:3]}")
+        assert a == b and a, (a, b)
+
+
+def k1_step_ms(ctx) -> float:
+    """Device ms of one decode step's K1 launches at T = 1 on `ctx`'s packed
+    planes (every layer's six matmuls and the logits head, bare products)."""
+    planes = [qw for layer in ctx.params["dec"]["blocks_packed"] for qw in layer.values()]
+    planes.append(ctx.params["dec"]["tok_embd_t"])
+    from whisper_tpu_torch.ops import qmm as QM
+
+    xs = {qw.codes_t.shape[0]: torch.randn((1, qw.codes_t.shape[0]), device="cuda")
+          for qw in planes}
+    nbytes = sum(qw.codes_t.numel() + 4 * qw.scales_t.numel()
+                 + (0 if qw.mins_t is None else 4 * qw.mins_t.numel()) for qw in planes)
+
+    def make_call(i):
+        def call():
+            for qw in planes:
+                QM.qmmt_fused(xs[qw.codes_t.shape[0]], qw.codes_t, qw.scales_t, qw.mins_t)
+        return call
+
+    before = QM.qmmt_fused.launches
+    ms = device_ms(make_call, nbytes)
+    QM.qmmt_fused.launches = before
+    return ms
+
+
+def phase10_setup(W, MI, pcm: np.ndarray, tmp: str) -> dict:
+    """What phase 10 needs from the host ahead of time: the turbo f16 file
+    (4 encoder layers), the 256-wide small model in f16 with its imatrix
+    captured on the card, and their whisper-quantize jobs started in the
+    background (q4_k of both, iq2_xxs of the small one)."""
+    from whisper_tpu_torch.audio.io import write_wav
+    from whisper_tpu_torch.models.whisper.hparams import LARGE_V3_TURBO, WhisperHParams
+    from whisper_tpu_torch.formats.imatrix import save_imatrix
+    from whisper_tpu_torch.utils.synth import write_synth_model
+
+    st = {"jobs": []}
+    t0 = time.perf_counter()
+    hp = WhisperHParams(**{**LARGE_V3_TURBO.__dict__, "n_audio_layer": TURBO_CUT_ENC_LAYERS})
+    st["turbo_f16"] = os.path.join(tmp, "turbo-4enc-f16.bin")
+    write_synth_model(st["turbo_f16"], hp, seed=0, qtype="f16", decisive=True)
+    t_turbo = time.perf_counter() - t0
+    st["jobs"].append(start_quantize(st["turbo_f16"], os.path.join(tmp, "turbo-4enc-q4_k.bin"),
+                                     "q4_k"))
+    t0 = time.perf_counter()
+    st["iq_f16"] = os.path.join(tmp, "small256-f16.bin")
+    write_synth_model(st["iq_f16"], WhisperHParams(**IQ_DIMS), seed=1, qtype="f16",
+                      decisive=True)
+    st["wav_small"] = os.path.join(tmp, "audio-10s.wav")
+    write_wav(st["wav_small"], voice_clip(pcm, 10.0))
+    coll, t_cap, launches = capture_imatrix(MI, st["iq_f16"], st["wav_small"], "cuda")
+    st["iq_card_imatrix"] = coll
+    st["iq_imatrix"] = os.path.join(tmp, "small256.imatrix")
+    save_imatrix(st["iq_imatrix"], MI.host_sums(coll), coll.ncalls)
+    st["jobs"].append(start_quantize(st["iq_f16"], os.path.join(tmp, "small256-q4_k.bin"),
+                                     "q4_k"))
+    st["jobs"].append(start_quantize(st["iq_f16"], os.path.join(tmp, "small256-iq2_xxs.bin"),
+                                     "iq2_xxs", st["iq_imatrix"]))
+    log(f"  turbo_4enc_f16_synth_s={t_turbo:.1f} bytes={os.path.getsize(st['turbo_f16'])}; "
+        f"small256 imatrix on the card: capture_s={t_cap:.3f} tensors={len(coll.sums)} "
+        f"launches={json.dumps(launches)}; quantize jobs started: "
+        f"{[os.path.basename(j['dst']) for j in st['jobs']]}")
+    return st
+
+
+def check_tools(W, counters, path: str, wav: str, pcm: np.ndarray, st: dict,
+                tmp: str) -> dict:
+    """Phase 10 on the turbo file and the small models; returns the
+    launches of bench -w 0."""
+    from whisper_tpu_torch.audio.io import write_wav
+    from whisper_tpu_torch.cli import bench_model as BM
+    from whisper_tpu_torch.cli import command as TCMD
+    from whisper_tpu_torch.cli import lsp as TLSP
+    from whisper_tpu_torch.cli import make_imatrix as MI
+    from whisper_tpu_torch.cli import stream as TS
+    from whisper_tpu_torch.cli import talk as TTALK
+    from whisper_tpu_torch.cli import wchess as TCH
+    from whisper_tpu_torch.formats.imatrix import save_imatrix
+    from whisper_tpu_torch.models.whisper import model as M
+    from whisper_tpu_torch.models.whisper.hparams import LARGE_V3_TURBO, WhisperHParams
+    from whisper_tpu_torch.utils.synth import write_synth_model
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ctx = W.load(path)
+    log(f"  turbo q5_0 load_s={time.perf_counter() - t0:.1f}")
+    wav_vad = os.path.join(tmp, "audio-8s-vad.wav")
+    write_wav(wav_vad, voice_clip(pcm, 8.0))
+    stream_turbo(TS, counters, ctx, wav, wav_vad)
+    command_turbo(TCMD, counters, ctx, pcm)
+    k1_q5_0 = k1_step_ms(ctx)
+    del ctx
+    bench = bench_turbo(BM, counters)
+
+    # the imatrix capture at full width, then q4_k from the background job
+    coll, t_cap, launches = capture_imatrix(MI, st["turbo_f16"], wav, "cuda")
+    im_path = os.path.join(tmp, "turbo-4enc.imatrix")
+    save_imatrix(im_path, MI.host_sums(coll), coll.ncalls)
+    hp = WhisperHParams(**{**LARGE_V3_TURBO.__dict__,
+                           "n_audio_layer": TURBO_CUT_ENC_LAYERS})
+    route = M._enc_attn_route(torch.float32, hp.n_audio_ctx, hp.n_audio_head,
+                              hp.n_audio_state // hp.n_audio_head)
+    log(f"  [imatrix turbo {TURBO_CUT_ENC_LAYERS} enc layers, 40 s, --steps 32] "
+        f"capture_s={t_cap:.3f} tensors={len(coll.sums)} bytes={os.path.getsize(im_path)} "
+        f"encoder_attention_route_f32={route} launches={json.dumps(launches)}")
+    del coll
+    jobs = {os.path.basename(j["dst"]): j for j in st["jobs"]}
+    finish_quantize(jobs["turbo-4enc-q4_k.bin"], timeout=900)
+    q4k = jobs["turbo-4enc-q4_k.bin"]["dst"]
+    t0 = time.perf_counter()
+    ctx = W.load(q4k)
+    t_load = time.perf_counter() - t0
+    assert all(qw.mins_t is not None for layer in ctx.params["dec"]["blocks_packed"]
+               for qw in layer.values())
+    W.transcribe(ctx, W.TranscribeParams(temperature_inc=0.0), pcm[:16000 * 3])
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    segs = W.transcribe(ctx, W.TranscribeParams(temperature_inc=0.0), pcm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  [q4_k turbo transcribe] load_s={t_load:.1f} wall_s={wall:.3f} "
+        f"segments={len(segs)} windows={ctx.timings.n_encode} launches={json.dumps(launches)}")
+    for s in segs[:3]:
+        log(f"    [{s.t0:6d} -> {s.t1:6d}] {s.text!r}")
+    assert segs and launches["qmmt_fused"] > 0 and launches["self_attention_qkv"] > 0
+    k1_q4_k = k1_step_ms(ctx)
+    log(f"  [K1 per decode step at T=1, turbo decoder planes] q5_0_ms={k1_q5_0:.5f} "
+        f"q4_k_ms={k1_q4_k:.5f} (25 launches each)")
+    del ctx
+
+    # the small models: the card against the CPU
+    small = os.path.join(tmp, "small-q5_0.bin")
+    write_synth_model(small, WhisperHParams(**SMALL_DIMS), seed=1, qtype="q5_0",
+                      decisive=True)
+    card_ctx = W.load(small)
+    cpu_ctx = W.load(small, device="cpu", use_packed_weights=True,
+                     compute_dtype=torch.bfloat16)
+    wav5 = os.path.join(tmp, "audio-5s-voice.wav")
+    write_wav(wav5, voice_clip(seeded_audio(5.0, seed=3), 5.0))
+    wav12 = os.path.join(tmp, "audio-12s.wav")
+    write_wav(wav12, voice_clip(pcm, 12.0))
+    stream_card_matches_cpu(TS, card_ctx, cpu_ctx,
+                            {"fixed": wav12, "fixed_ac768": wav12, "vad": wav5})
+    voice_tools_card_matches_cpu((TS, TCMD, TTALK, TLSP, TCH), card_ctx, cpu_ctx, wav5, tmp)
+    del card_ctx, cpu_ctx
+    imatrix_card_matches_cpu(MI, st["iq_f16"], st["wav_small"], card=st["iq_card_imatrix"])
+    for name in ("small256-q4_k.bin", "small256-iq2_xxs.bin"):
+        finish_quantize(jobs[name], timeout=900)
+    quantized_card_matches_cpu(W, {n: jobs[n]["dst"] for n in ("small256-q4_k.bin",
+                                                              "small256-iq2_xxs.bin")},
+                               voice_clip(pcm, 10.0))
+    log(f"  phase_s={time.perf_counter() - t_phase:.1f}")
+    return bench
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -2282,6 +2785,14 @@ def main() -> int:
         for line in d["ptxas"].splitlines():
             if any(k in line for k in ("Compiling entry", "Used", "spill")):
                 log(f"    {line.strip()}")
+
+    heading("2b. phase 10's files, and its whisper-quantize jobs in the background",
+            t_start)
+    from whisper_tpu_torch.cli import make_imatrix as MI
+
+    tools = tempfile.TemporaryDirectory()
+    st = phase10_setup(W, MI, seeded_audio(40.0, seed=0), tools.name)
+    atexit.register(stop_jobs, st["jobs"])
 
     heading("3. kernels against their plain versions (turbo shapes)", t_start)
     k1 = check_qmmt(dev, Q, QM)
@@ -2362,7 +2873,13 @@ def main() -> int:
     heading("9. the parity mode and grammars: load(precision=ggml_cpu_f16), graphs vs "
             "eager, whisper-cli --precision/-p 2/--grammar, card vs CPU", t_start)
     check_parity_grammar(W, M, TC, counters, path, wav, pcm, turbo.name)
+
+    heading("10. the rest of the CLIs and the format tools: whisper-stream, whisper-command, "
+            "whisper-bench -w 0, imatrix capture, whisper-quantize q4_k/iq2_xxs, "
+            "card vs CPU", t_start)
+    bench = check_tools(W, counters, path, wav, pcm, st, tools.name)
     turbo.cleanup()
+    tools.cleanup()
 
     def entry(name, src, replaces, agg, n_launches):
         b_ms, by = bound_ms(agg["bytes"], agg["flops"])

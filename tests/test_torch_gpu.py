@@ -8,7 +8,9 @@ window loop (the VAD and the device mel against the CPU, K2 at a DTW
 pass's rows, a VAD + DTW transcribe against the CPU's), and Parakeet-TDT
 (the TDT loop's CUDA graphs against its eager loop bit for bit, the card's
 f32 encoder within 1e-4 of max |enc| of the CPU's, its device mel within
-1e-5 of max |mel| of numpy).  They need a CUDA
+1e-5 of max |mel| of numpy), and the tools of phase 10 (the imatrix
+capture within 1e-4 of each tensor's largest sum of the CPU's, `ncalls`
+equal; whisper-stream with -ac 768 printing what the CPU prints).  They need a CUDA
 card and skip without one (run them on the card with
 `python -m pytest tests/test_torch_gpu.py -m gpu`).
 
@@ -658,3 +660,43 @@ def test_parakeet_device_mel_matches_numpy(cuda, parakeet_file):
                                         m.hparams.n_fft).cpu().numpy()
         assert got.shape == ref.shape
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_imatrix_capture_card_matches_cpu(cuda, tmp_path):
+    # the check lives in chip_smoke.py (its phase 10): the capture on the
+    # card (f64 sums there) against the CPU's, on a 256-wide decisive model
+    from chip_smoke import IQ_DIMS, imatrix_card_matches_cpu, seeded_audio, voice_clip
+    from whisper_tpu_torch.audio.io import write_wav
+    from whisper_tpu_torch.cli import make_imatrix as MI
+    from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
+    from whisper_tpu_torch.utils.synth import write_synth_model
+
+    path, wav = str(tmp_path / "small256-f16.bin"), str(tmp_path / "audio.wav")
+    write_synth_model(path, WhisperHParams(**IQ_DIMS), seed=1, qtype="f16", decisive=True)
+    write_wav(wav, voice_clip(seeded_audio(10.0, seed=0), 10.0))
+    imatrix_card_matches_cpu(MI, path, wav)
+
+
+def test_stream_ac768_card_matches_cpu(cuda, tmp_path):
+    # the check lives in chip_smoke.py (its phase 10): whisper-stream with
+    # -ac 768 (K4 over 768 frames, padded to 1024) on the card against the
+    # CPU (bf16, packed planes), identical output
+    import whisper_tpu_torch as W
+    from chip_smoke import SMALL_DIMS, seeded_audio, stream_card_matches_cpu, voice_clip
+    from whisper_tpu_torch.audio.io import write_wav
+    from whisper_tpu_torch.cli import stream as TS
+    from whisper_tpu_torch.decoding.graphs import COUNTED
+    from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
+    from whisper_tpu_torch.utils.synth import write_synth_model
+
+    path, wav = str(tmp_path / "small-q5_0.bin"), str(tmp_path / "audio.wav")
+    write_synth_model(path, WhisperHParams(**SMALL_DIMS), seed=1, qtype="q5_0",
+                      decisive=True)
+    write_wav(wav, voice_clip(seeded_audio(12.0, seed=0), 12.0))
+    card = W.load(path)
+    cpu = W.load(path, device="cpu", use_packed_weights=True, compute_dtype=torch.bfloat16)
+    before = {fn.__name__: fn.launches for fn in COUNTED}
+    stream_card_matches_cpu(TS, card, cpu, {"fixed_ac768": wav}, modes=("fixed_ac768",))
+    after = {fn.__name__: fn.launches for fn in COUNTED}
+    for name in ("qmmt_fused", "self_attention_qkv"):
+        assert after[name] > before[name], name

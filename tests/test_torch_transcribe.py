@@ -17,6 +17,7 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 import whisper_tpu as J
 import whisper_tpu_torch as W
@@ -120,8 +121,25 @@ def test_isolation_no_jax_in_process(model_path):
 
 
 def test_refusals(model_path):
+    # CapturedWeight is ported (imatrix capture, cli/make_imatrix.py): it
+    # hands each product's input to its collector and computes as before.
+    # What stays refused: the JAX package's native C mel.
+    from whisper_tpu_torch.audio.mel import LogMel
+    from whisper_tpu_torch.models.whisper import model as M
+
+    seen = []
+
+    class Rec:
+        def add(self, names, x):
+            seen.append((names, tuple(x.shape)))
+
+    w = torch.randn(8, 4)
+    x = torch.randn(3, 8)
+    y = M._mm(x, CapturedWeight(["w"], w, Rec()), torch.float32)
+    torch.testing.assert_close(y, x @ w, rtol=0, atol=0)
+    assert seen == [(["w"], (3, 8))]
     with pytest.raises(NotImplementedError):
-        CapturedWeight(["w"], None, None)
+        LogMel(np.ones((80, 201), np.float32), backend="native")
 
 
 def test_default_device_needs_a_card(model_path, monkeypatch):

@@ -7,7 +7,10 @@ Port of whisper_tpu/cli/bench_cli.py, on the CUDA card:
   -w 2   matmul throughput at 4096^2: a chain of bf16 torch.matmul (plain,
          as jnp.matmul is in the JAX package), then a chain of q5_0-style
          fused-dequant products through the qmm kernel (csrc/qmm.cu)
-  -w 0   the full-model bench (the repo's bench.py, JAX) is not ported
+  -w 0   the full-model bench (cli/bench_model.py, the port of the repo's
+         bench.py): one JSON line of encoder, decode, batch, prompt and
+         Parakeet rows for -m MODEL (default large-v3, plus the
+         large-v3-turbo rows)
 
 Times come from CUDA events around chains of two lengths, so the launch of
 the chain and its readback cancel out.  The command has no CPU flag, as the
@@ -15,7 +18,7 @@ JAX one has none: without a card it raises.  `bench_memcpy` and
 `bench_mul_mat` take `n` and `device` so that tests can call them small on
 the CPU (host clock there).
 
-Usage: python -m whisper_tpu_torch.cli.bench_cli [-w N]
+Usage: python -m whisper_tpu_torch.cli.bench_cli [-w N] [-m MODEL_NAME]
 """
 
 from __future__ import annotations
@@ -120,9 +123,9 @@ def bench_mul_mat(n: int = 4096, device=None) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="whisper-bench")
     ap.add_argument("-w", "--what", type=int, default=0,
-                    help="0=full model (not ported), 1=memcpy, 2=mul_mat")
+                    help="0=full model, 1=memcpy, 2=mul_mat")
     ap.add_argument("-m", "--model", default="large-v3",
-                    help="model size name for -w 0 (not ported)")
+                    help="model size name for -w 0 (synthetic weights)")
     args = ap.parse_args(argv)
 
     from ..runtime.logging import print_system_info
@@ -133,9 +136,13 @@ def main(argv=None) -> int:
         return bench_memcpy()
     if args.what == 2:
         return bench_mul_mat()
-    print("error: not ported to whisper_tpu_torch yet: -w 0 (the full-model "
-          "bench is the JAX package's bench.py)", file=sys.stderr)
-    return 2
+    import os
+
+    from . import bench_model
+
+    os.environ["WTPU_BENCH_MODEL"] = args.model
+    bench_model.main()
+    return 0
 
 
 if __name__ == "__main__":

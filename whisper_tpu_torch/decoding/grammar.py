@@ -128,7 +128,9 @@ def _advance_stack(rules: List[Rule], stack: List[Tuple[int, int]],
         # each alternate of the sub-rule spawns a stack
         i = 0
         while True:
-            ns = next_stack + [(sub_id, i)]
+            # an empty alternate (`x?`, `(a | )`) adds no frame, as in the
+            # reference; the JAX package's copy pushes its END and raises
+            ns = next_stack + ([] if _is_end_of_sequence(sub[i]) else [(sub_id, i)])
             _advance_stack(rules, ns, out)
             # find next alternate
             while not _is_end_of_sequence(sub[i]):
@@ -161,7 +163,8 @@ def grammar_init(rules: Sequence[Sequence[GElement]], start_rule: int) -> Gramma
     rule = rules[start_rule]
     i = 0
     while True:
-        _advance_stack(rules, [(start_rule, i)], stacks)
+        _advance_stack(rules, [] if _is_end_of_sequence(rule[i]) else [(start_rule, i)],
+                       stacks)
         while not _is_end_of_sequence(rule[i]):
             i += 1
         if rule[i].type == GType.ALT:

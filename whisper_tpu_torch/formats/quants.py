@@ -457,8 +457,8 @@ def quantize(x: np.ndarray, ggml_type: int,
 
 
 class _IQEncoders(dict):
-    """Registry of the grid formats whose encoder needs an importance
-    matrix; encoding them is not supported here."""
+    """Lazy registry: the grid-format encoders import iq_encode (which
+    builds the quantizer tables, ~15 s) only when actually used."""
 
     def __contains__(self, k):
         return k in (GGML_TYPE_IQ2_XXS, GGML_TYPE_IQ2_XS, GGML_TYPE_IQ2_S,
@@ -466,10 +466,17 @@ class _IQEncoders(dict):
                      GGML_TYPE_IQ1_M)
 
     def __getitem__(self, k):
-        # the grid-format encoders (iq_encode.py) are not part of this
-        # package: it loads such files but does not write them
-        raise NotImplementedError(
-            f"quantize to {type_name(k)} is not supported by whisper_tpu_torch")
+        from . import iq_encode as IE
+
+        return {
+            GGML_TYPE_IQ2_XXS: IE.quantize_iq2_xxs,
+            GGML_TYPE_IQ2_XS: IE.quantize_iq2_xs,
+            GGML_TYPE_IQ2_S: IE.quantize_iq2_s,
+            GGML_TYPE_IQ3_XXS: IE.quantize_iq3_xxs,
+            GGML_TYPE_IQ3_S: IE.quantize_iq3_s,
+            GGML_TYPE_IQ1_S: IE.quantize_iq1_s,
+            GGML_TYPE_IQ1_M: IE.quantize_iq1_m,
+        }[k]
 
 
 _IMATRIX_QUANTIZERS = _IQEncoders()

@@ -79,12 +79,25 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class CapturedWeight:
-    """The JAX package's imatrix capture shim (tools/make_imatrix.py): not
-    ported, so building one raises."""
+    """Imatrix-capture wrapper (formats/imatrix.py, cli/make_imatrix.py):
+    records the matmul input's per-column activation statistics under the
+    weight's file tensor name(s), then computes normally.  Eager only: the
+    collector is a host-side side effect that a captured CUDA graph would
+    drop, as a jit trace drops it in the JAX package."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "imatrix capture (CapturedWeight) is not ported to whisper_tpu_torch")
+    def __init__(self, names, w, collector):
+        self.names = names
+        self.w = w
+        self.collector = collector
+
+    def __getitem__(self, l):
+        """Stacked (L, ...) weights slice per layer; `names` is then a
+        per-layer list."""
+        return CapturedWeight(self.names[l], self.w[l], self.collector)
+
+    @property
+    def T(self):  # the logits head transposes the token embedding
+        return CapturedWeight(self.names, self.w.T, self.collector)
 
 
 class QWGGML(NamedTuple):
@@ -159,7 +172,11 @@ def _mm(x: torch.Tensor, w, dtype) -> torch.Tensor:
     """x @ w with f32 accumulation; operands rounded to `dtype`.  A QWeightT
     goes through the streaming dequant kernel (ops/qmm.py qmmt); a QWeight
     ((out, in) planes) is dequantized first; a QWGGML takes the parity
-    mode's integer block dots."""
+    mode's integer block dots.  A CapturedWeight hands x to its collector
+    first."""
+    if isinstance(w, CapturedWeight):
+        w.collector.add(w.names, x)
+        return _mm(x, w.w, dtype)
     if isinstance(w, QWGGML):
         return _mm_ggml_q(x, w)
     if isinstance(w, QWeightT):
@@ -516,7 +533,11 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     device = tokens.device
 
     tok_embd = dec["tok_embd"]
-    if isinstance(tok_embd, QWGGML):
+    if isinstance(tok_embd, CapturedWeight):
+        # imatrix capture wraps the logits head's use; the embedding lookup
+        # reads the inner tensor
+        emb = tok_embd.w[tokens]
+    elif isinstance(tok_embd, QWGGML):
         # ggml get_rows dequantizes the quantized embedding rows exactly:
         # code * f32(f16(d)) per 32-block
         rows, scl = tok_embd.codes[tokens], tok_embd.scales[tokens]

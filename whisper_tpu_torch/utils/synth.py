@@ -1,5 +1,9 @@
 """Write a complete synthetic ggml Whisper model file from a seed (numpy).
 
+`synth_params` is the in-memory counterpart (the JAX package's
+utils/synth.py): a parameter tree at real dims drawn on the device, for
+whisper-bench -w 0 (cli/bench_model.py), with no file and no host copy.
+
 The file has a synthetic vocabulary (the loader's `synthesize_missing`
 fills the special tokens), a triangular mel filterbank, and random weights
 drawn like tools/make_test_model.py `synth_tensors` (N(0, 1/fan_in) matrices,
@@ -22,6 +26,7 @@ import argparse
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from ..formats import container, quants
 from ..models.whisper import hparams as H
@@ -179,6 +184,59 @@ def write_synth_model(path: str, hp: WhisperHParams, seed: int = 0,
             else:
                 st = tensor_storage_type(name, arr.ndim, use_f16=True)
                 container.write_tensor_record(f, name, arr, st)
+
+
+def synth_params(hp: WhisperHParams, dtype=torch.bfloat16, seed: int = 0,
+                 device="cpu"):
+    """A whisper parameter tree with random weights at `hp` dims, drawn on
+    `device` from `seed` (whisper_tpu/utils/synth.py synth_params): the
+    layout of models/whisper/load.py, with the matmul weights in `dtype`
+    and the rest in f32, as runtime/context.py installs a loaded file."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def w(*shape, std=0.02, dt=torch.float32):
+        return (torch.randn(shape, generator=g, device=device) * std).to(dt)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device)
+
+    ns, nm, L = hp.n_audio_state, hp.n_mels, hp.n_audio_layer
+    nt, Lt, V = hp.n_text_state, hp.n_text_layer, hp.n_vocab
+
+    def blocks(n, layers, cross):
+        b = {
+            "attn_ln_w": ones(layers, n), "attn_ln_b": w(layers, n),
+            "qkv_w": w(layers, n, 3 * n, dt=dtype), "qkv_b": w(layers, 3 * n),
+            "o_w": w(layers, n, n, dt=dtype), "o_b": w(layers, n),
+            "mlp_ln_w": ones(layers, n), "mlp_ln_b": w(layers, n),
+            "mlp0_w": w(layers, n, 4 * n, dt=dtype), "mlp0_b": w(layers, 4 * n),
+            "mlp1_w": w(layers, 4 * n, n, dt=dtype), "mlp1_b": w(layers, n),
+        }
+        if cross:
+            b.update({
+                "xattn_ln_w": ones(layers, n), "xattn_ln_b": w(layers, n),
+                "xq_w": w(layers, n, n, dt=dtype), "xq_b": w(layers, n),
+                "xk_w": w(layers, n, n, dt=dtype),
+                "xv_w": w(layers, n, n, dt=dtype), "xv_b": w(layers, n),
+                "xo_w": w(layers, n, n, dt=dtype), "xo_b": w(layers, n),
+            })
+        return b
+
+    return {
+        "enc": {
+            "pos_embd": w(hp.n_audio_ctx, ns),
+            "conv1_w": w(ns, nm, 3, std=0.1, dt=dtype), "conv1_b": w(ns),
+            "conv2_w": w(ns, ns, 3, std=0.1, dt=dtype), "conv2_b": w(ns),
+            "ln_post_w": ones(ns), "ln_post_b": w(ns),
+            "blocks": blocks(ns, L, cross=False),
+        },
+        "dec": {
+            "pos_embd": w(hp.n_text_ctx, nt),
+            "tok_embd": w(V, nt),
+            "ln_w": ones(nt), "ln_b": w(nt),
+            "blocks": blocks(nt, Lt, cross=True),
+        },
+    }
 
 
 def main(argv=None) -> None:
