@@ -84,7 +84,27 @@ Phases (any failure exits non-zero; nothing is caught):
      iq2_xxs files (the card's imatrix) loaded on both.  The q4_k and
      iq2_xxs whisper-quantize runs (host numpy, minutes) start in the
      background after phase 2 ("2b") and are killed if the script exits
-     before phase 10 waits for them.
+     before phase 10 waits for them;
+ 11. the C ABI and fine-tuning, on the turbo file and the 40 s of phase 4
+     (written as raw f32 PCM) and phase 8's Parakeet file: the shim
+     libwhisper_tpu_torch.so (whisper_tpu_torch/abi.py) loaded into this
+     interpreter runs whisper_init_from_file_with_params (default params:
+     the card) and whisper_full against the port's transcribe() of the same
+     params (identical segments, K1 and K4 launched by the C call, each
+     one's wall, medians of 3), and the VAD at its default context params
+     (the card) on phase 7's file and clip against the port's Python VAD
+     (identical segments); fine-tuning the turbo file's f32 weights on
+     one seeded 30 s window and a 64-token row (8 AdamW steps with the
+     encoder frozen, the loss falling; one step with the encoder trained;
+     ms per step and peak memory of each), the result written with
+     save_finetuned, read back equal at f16 rounding and transcribed; then
+     the C hosts all at once, each a process of its own (abi_host.c with
+     "cuda", native/test_abi_main.c, test_abi_structs.c,
+     test_abi_callbacks.c, bindings/cpp/example.cpp, and
+     native/test_abi_parakeet.c on the Parakeet file): each exits 0 and
+     prints the segments (or the first token, the segment count, the
+     Parakeet text) the port's own Python calls give; meanwhile 3 AdamW
+     steps on a small model card vs CPU, the losses within rtol 1e-4.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -95,6 +115,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import copy
+import ctypes
 import io
 import json
 import math
@@ -2738,6 +2759,348 @@ def check_tools(W, counters, path: str, wav: str, pcm: np.ndarray, st: dict,
     return bench
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the C ABI and fine-tuning on the card
+# ---------------------------------------------------------------------------
+
+# bindings/cpp/example.cpp's whisper_full_json params
+ABI_EXAMPLE = '{"language": "en", "best_of": 1, "temperature_inc": 0}'
+ABI_REPEATS = 3
+# each C host (source, extra argv, its success line): all but the Parakeet
+# host run on phase 4's turbo file and 40 s, the Parakeet host on phase 8's
+# file, each with whisper_context_params / parakeet_context_params at their
+# defaults (use_gpu true: the card); abi_host takes "cuda" for use_gpu
+ABI_HOSTS = {
+    "abi_host": ("whisper_tpu_torch/native/abi_host.c", ["cuda"], "ABI-HOST-OK"),
+    "test_abi_main": ("native/test_abi_main.c", [], "C-ABI OK"),
+    "test_abi_structs": ("native/test_abi_structs.c", [], "STRUCT-ABI-OK"),
+    "test_abi_callbacks": ("native/test_abi_callbacks.c", [], "CALLBACKS-OK"),
+    "cpp_example": ("bindings/cpp/example.cpp", [], "streamed:"),
+    "test_abi_parakeet": ("native/test_abi_parakeet.c", [], "PARAKEET-ABI-OK"),
+}
+FT_STEPS = 8
+FT_LR = 1e-5
+FT_TOKENS = 64
+
+
+def abi_build(abi, here: Path) -> dict:
+    """The shim library, then every C host against it (one g++/gcc each,
+    all at once)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    abi.build_library()
+    t_lib = time.perf_counter() - t0
+    with ThreadPoolExecutor(len(ABI_HOSTS)) as ex:
+        exes = dict(zip(ABI_HOSTS, ex.map(lambda src: abi.build_host(here / src[0]),
+                                          ABI_HOSTS.values())))
+    log(f"  build_s: library={t_lib:.1f} hosts={time.perf_counter() - t0 - t_lib:.1f} "
+        f"({abi.LIB})")
+    return exes
+
+
+def abi_in_process(abi, W, counters, path: str, pcm: np.ndarray) -> dict:
+    """libwhisper_tpu_torch.so loaded into this interpreter: whisper_init_
+    from_file_with_params at the default context params (the card) and
+    whisper_full with the struct params at their greedy defaults (language
+    "en", no temperature fallback), against the port's transcribe() of the
+    same params on the context the C init made (the handle is the capi's
+    key to it): identical segments, K1 and K4 launched by the C call, and
+    each one's wall (a warm-up each, then ABI_REPEATS runs of each in
+    turns; medians)."""
+    from whisper_tpu_torch import capi
+
+    lib = abi.load_library()
+    cp = lib.whisper_context_default_params()
+    assert cp.use_gpu
+    t0 = time.perf_counter()
+    cctx = lib.whisper_init_from_file_with_params(path.encode(), cp)
+    t_init = time.perf_counter() - t0
+    assert cctx, "whisper_init_from_file_with_params returned NULL"
+    fp = lib.whisper_full_default_params(0)
+    fp.language, fp.temperature_inc, fp.print_progress = b"en", 0.0, False
+    buf = np.ascontiguousarray(pcm, np.float32)
+    cbuf = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    ctx = capi._contexts[cctx]
+    assert ctx.device.type == "cuda" and ctx.use_packed_weights
+    params = capi._params_from_json(abi.GREEDY)
+
+    def run_c():
+        t = time.perf_counter()
+        assert lib.whisper_full(cctx, fp, cbuf, len(buf)) == 0
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def run_py():
+        t = time.perf_counter()
+        segs = W.transcribe(ctx, params, pcm)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, segs
+
+    run_c()
+    run_py()
+    for fn in counters:
+        fn.launches = 0
+    walls_c, walls_py = [run_c()], []
+    launches = {fn.__name__: fn.launches for fn in counters}
+    for i in range(ABI_REPEATS):
+        w, segs = run_py()
+        walls_py.append(w)
+        if i + 1 < ABI_REPEATS:
+            walls_c.append(run_c())
+    ref = [(s.t0, s.t1, s.text, [t.id for t in s.tokens]) for s in segs]
+    got = abi.segments(lib, cctx)
+    med_c, med_py = float(np.median(walls_c)), float(np.median(walls_py))
+    log(f"  in process: init_s={t_init:.2f} whisper_full_wall_s median={med_c:.4f} "
+        f"all={[round(w, 4) for w in walls_c]} transcribe_wall_s median={med_py:.4f} "
+        f"all={[round(w, 4) for w in walls_py]} abi_over_transcribe_ms="
+        f"{(med_c - med_py) * 1e3:.2f} segments={len(got)} launches={json.dumps(launches)}")
+    assert got == ref and len(ref) >= 2, (got, ref)
+    assert launches["qmmt_fused"] > 0 and launches["self_attention_qkv"] > 0, launches
+    example = [(s.t0, s.t1, s.text) for s in
+               W.transcribe(ctx, capi._params_from_json(ABI_EXAMPLE), pcm)]
+    lib.whisper_free(cctx)
+    t = segs[0].tokens[0]
+    first = {"id": t.id, "tid": t.tid, "p": t.p, "t0": t.t0, "t1": t.t1}
+    return {"ref": ref, "example": example, "launches": launches, "first_token": first}
+
+
+def abi_vad_in_process(abi, vad_path: str, pcm: np.ndarray, thr: float) -> None:
+    """The VAD through the library in this interpreter:
+    whisper_vad_init_from_file_with_params at the port's default VAD context
+    params (use_gpu true: the card) and whisper_vad_segments_from_samples at
+    phase 7's threshold and maximum speech duration, against the port's
+    Python VAD on the card (segments_from_samples) at the same params:
+    equal segments, and the C call's context on the card."""
+    from whisper_tpu_torch import capi
+    from whisper_tpu_torch.decoding.params import VadParams
+    from whisper_tpu_torch.models.vad import silero as VS
+
+    lib = abi.load_library()
+    vcp = lib.whisper_vad_default_context_params()
+    assert vcp.use_gpu
+    vctx = lib.whisper_vad_init_from_file_with_params(vad_path.encode(), vcp)
+    assert vctx, "whisper_vad_init_from_file_with_params returned NULL"
+    assert capi._contexts[vctx].device.type == "cuda"
+    vp = lib.whisper_vad_default_params()
+    vp.threshold, vp.max_speech_duration_s = thr, VAD_MAX_SPEECH_S
+    t = time.perf_counter()
+    got = abi.vad_segments(lib, vctx, vp, pcm)
+    wall = time.perf_counter() - t
+    lib.whisper_vad_free(vctx)
+    params = VadParams(threshold=float(vp.threshold), max_speech_duration_s=VAD_MAX_SPEECH_S)
+    want = [(float(s.start), float(s.end)) for s in
+            VS.segments_from_samples(VS.VadContext.from_file(vad_path), params, pcm)]
+    log(f"  VAD from C on the card: segments={len(got)} first_call_wall_s={wall:.3f} "
+        f"equal to the Python VAD's: {got == want}")
+    assert got == want and got, (got, want)
+
+
+def start_hosts(exes: dict, turbo: str, parakeet: str, pcm_path: str, abi) -> dict:
+    """Every C host at once, each a process of its own with an embedded
+    interpreter (host_env), on the card."""
+    procs = {}
+    for name, (_, extra, _) in ABI_HOSTS.items():
+        model = parakeet if name == "test_abi_parakeet" else turbo
+        procs[name] = subprocess.Popen([str(exes[name]), model, pcm_path, *extra],
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True, env=abi.host_env())
+    atexit.register(kill_hosts, procs)
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def kill_hosts(procs: dict) -> None:
+    """At exit: end any host still running (a phase that failed first)."""
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_hosts(hosts: dict, refs: dict, parakeet_text: str) -> None:
+    """Each host must exit 0, print its success line, and print what the
+    port's own Python calls give on the same file, audio and params."""
+    from whisper_tpu_torch import abi
+
+    out = {}
+    for name, p in hosts["procs"].items():
+        so, se = p.communicate(timeout=600)
+        out[name] = (p.returncode, so, se)
+        log(f"  {name}: rc={p.returncode} done_at_s={time.perf_counter() - hosts['t0']:.1f}")
+    for name, (rc, so, se) in out.items():
+        assert rc == 0 and ABI_HOSTS[name][2] in so, f"{name}: rc={rc}\n{so[-3000:]}\n{se[-3000:]}"
+    ref = refs["ref"]
+    assert abi.seg_lines(out["abi_host"][1]) == ref
+    assert [s[:3] for s in abi.seg_lines(out["test_abi_main"][1])] == [r[:3] for r in ref]
+    assert [s[:3] for s in abi.seg_lines(out["cpp_example"][1])] == refs["example"]
+    first = refs["first_token"]
+    want = (f"token_data: id={first['id']} tid={first['tid']} p={first['p']:.4f} "
+            f"t0={first['t0']} t1={first['t1']}")
+    assert want in out["test_abi_structs"][1], (want, out["test_abi_structs"][1])
+    assert f"run A: {len(ref)} segments streamed" in out["test_abi_callbacks"][1]
+    text = [ln for ln in out["test_abi_parakeet"][1].splitlines()
+            if ln.startswith("TEXT=")][0][len("TEXT="):]
+    assert text == parakeet_text, (text[:200], parakeet_text[:200])
+    log(f"  C hosts: every one exit 0 and printed the port's own segments (whisper: "
+        f"{len(ref)} segments; parakeet: {len(text)} characters) "
+        f"wall_s={time.perf_counter() - hosts['t0']:.1f}")
+
+
+def finetune_full_width(counters, path: str, pcm: np.ndarray, tmp: str) -> dict:
+    """The turbo file, dequantized to f32 by the loader, on one seeded 30 s
+    window with a FT_TOKENS-token row: FT_STEPS AdamW steps with the encoder
+    frozen (the loss after them below the first step's), written with
+    save_finetuned (f16), then one step with the encoder trained; ms per
+    step and peak memory of each.  Returns what `check_finetuned_file`
+    checks."""
+    from whisper_tpu_torch.audio.mel import LogMel
+    from whisper_tpu_torch.models.whisper.load import load_model
+    from whisper_tpu_torch.training import finetune as TF
+    from whisper_tpu_torch.training.opt import OptimizerParams
+
+    t0 = time.perf_counter()
+    wm = load_model(path)
+    t_read = time.perf_counter() - t0
+    hp, v = wm.hparams, wm.vocab
+    mel, _ = LogMel(wm.filters.data)(pcm[:16000 * 30])
+    mel = np.ascontiguousarray(mel[:, :2 * hp.n_audio_ctx])
+    rng = np.random.default_rng(0)
+    prompt = [v.token_sot, v.lang_token(0), v.token_transcribe]
+    body = rng.integers(100, 5000, FT_TOKENS - len(prompt) - 1)
+    row = np.array(prompt + body.tolist() + [v.token_eot], np.int32)
+    batch = TF._DictBatcher.collate([(mel, row)], len(row))
+    opt = lambda _it: OptimizerParams(alpha=FT_LR)
+
+    def steps(freeze_encoder: bool, n: int):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        ctx = TF.make_finetune_context(wm, freeze_encoder=freeze_encoder, get_opt_pars=opt)
+        torch.cuda.synchronize()
+        t_ctx = time.perf_counter() - t
+        for fn in counters:
+            fn.launches = 0
+        losses, ms = [], []
+        for _ in range(n):
+            t = time.perf_counter()
+            losses.append(ctx.step(batch))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        # the peak above what earlier phases left allocated (retired
+        # graphs' pools among it) is the training's own
+        peak = (torch.cuda.max_memory_allocated(), torch.cuda.max_memory_allocated() - base)
+        return ctx, losses, ms, t_ctx, launches, peak
+
+    ctx, losses, ms, t_ctx, launches, peak = steps(True, FT_STEPS)
+    after = ctx.eval(batch)
+    log(f"  fine-tune (encoder frozen): read_s={t_read:.1f} context_s={t_ctx:.1f} "
+        f"losses={[round(x, 4) for x in losses]} loss_after_{FT_STEPS}={after:.4f} "
+        f"ms_per_step first={ms[0]:.1f} median_of_rest={float(np.median(ms[1:])):.1f} "
+        f"all={[round(x, 1) for x in ms]} max_memory_allocated={peak[0]} "
+        f"peak_above_start={peak[1]} launches={json.dumps(launches)}")
+    assert all(math.isfinite(x) for x in losses) and after < losses[0], (losses, after)
+    assert not any(launches.values()), launches     # f32: no kernel
+    out = os.path.join(tmp, "turbo-finetuned-f16.bin")
+    t = time.perf_counter()
+    TF.save_finetuned(out, wm, ctx.params, use_f16=True)
+    saved = TF.pytree_to_tensors(ctx.params, hp)
+    log(f"  save_finetuned: save_s={time.perf_counter() - t:.1f} bytes={os.path.getsize(out)}")
+    del ctx
+    torch.cuda.empty_cache()
+    ctx, losses_e, ms_e, t_ctx, _, peak = steps(False, 1)
+    log(f"  fine-tune (encoder trained): context_s={t_ctx:.1f} loss={losses_e[0]:.4f} "
+        f"ms_per_step={ms_e[0]:.1f} max_memory_allocated={peak[0]} "
+        f"peak_above_start={peak[1]}")
+    assert math.isfinite(losses_e[0])
+    del ctx
+    torch.cuda.empty_cache()
+    return {"out": out, "saved": saved, "hp": hp}
+
+
+def check_finetuned_file(W, tuned: dict, pcm: np.ndarray) -> None:
+    """The saved file read back with the port's loader equals the trained
+    tensors at the converter's rounding (f16 or f32 per tensor), and one
+    transcribe() of it on the card gives tokens in the vocabulary."""
+    from whisper_tpu_torch.formats.quants import GGML_TYPE_F16
+    from whisper_tpu_torch.models.whisper.load import load_model
+    from whisper_tpu_torch.models.whisper.writer import tensor_storage_type
+    from whisper_tpu_torch.training import finetune as TF
+
+    out, saved, hp = tuned["out"], tuned["saved"], tuned["hp"]
+    got = TF.pytree_to_tensors(load_model(out).params, hp)
+    assert got.keys() == saved.keys()
+    for name, a in saved.items():
+        if tensor_storage_type(name, a.ndim, True) == GGML_TYPE_F16:
+            a = a.astype(np.float16).astype(np.float32)
+        assert np.array_equal(got[name], a), name
+    segs = W.transcribe(W.load(out), W.TranscribeParams(temperature_inc=0.0), pcm)
+    log(f"  the tuned file: {len(saved)} tensors read back equal at f16 rounding; "
+        f"transcribe(): {len(segs)} segments")
+    assert all(0 <= t.id < hp.n_vocab for s in segs for t in s.tokens)
+    os.remove(out)
+
+
+def finetune_card_matches_cpu(tmp: str) -> None:
+    """3 AdamW steps on a small decisive model, the encoder trained too, on
+    the card (IEEE f32, full_f32) and on the CPU: the losses agree within
+    rtol 1e-4 (f32 sums in other orders; AdamW's update of an element whose
+    gradient is near 0 follows its noise)."""
+    from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
+    from whisper_tpu_torch.models.whisper.load import load_model
+    from whisper_tpu_torch.training import finetune as TF
+    from whisper_tpu_torch.utils.synth import write_synth_model
+
+    hp = WhisperHParams(n_vocab=51865, n_audio_ctx=1500, n_audio_state=128,
+                        n_audio_head=2, n_audio_layer=2, n_text_ctx=448,
+                        n_text_state=128, n_text_head=2, n_text_layer=3, n_mels=80)
+    path = os.path.join(tmp, "mini-ft-q5_0.bin")
+    write_synth_model(path, hp, seed=1, qtype="q5_0", decisive=True)
+    wm = load_model(path)
+    rng = np.random.default_rng(0)
+    mel = (0.1 * rng.standard_normal((hp.n_mels, 2 * hp.n_audio_ctx))).astype(np.float32)
+    row = np.concatenate([[wm.vocab.token_sot], rng.integers(100, 1000, 20),
+                          [wm.vocab.token_eot]]).astype(np.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _, out[dev] = TF.finetune(wm, [(mel, row)], steps=3, lr=1e-3, freeze_encoder=False,
+                                  device=dev)
+    log(f"  fine-tune card vs CPU (small model, 3 steps): card={out['cuda']} cpu={out['cpu']}")
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+    assert out["cuda"][-1] < out["cuda"][0]
+
+
+def check_abi_and_training(W, counters, path: str, pcm: np.ndarray, tmp: str,
+                           here: Path, vad: tuple) -> dict:
+    """Phase 11: the C ABI library in this interpreter (timed), its VAD on
+    phase 7's file, clip and threshold (`vad`), fine-tuning at full width
+    (timed), then the C hosts all at once while the tuned file, the
+    Parakeet reference and fine-tuning card vs CPU are checked."""
+    from whisper_tpu_torch import abi
+    from whisper_tpu_torch.models.parakeet.context import ParakeetContext
+
+    t_phase = time.perf_counter()
+    exes = abi_build(abi, here)
+    refs = abi_in_process(abi, W, counters, path, pcm)
+    abi_vad_in_process(abi, *vad)
+    torch.cuda.empty_cache()
+    tuned = finetune_full_width(counters, path, pcm, tmp)
+    parakeet = os.path.join(tmp, "parakeet-q5_0.bin")
+    pcm_path = os.path.join(tmp, "audio-40s.pcm.f32")
+    pcm.astype("<f4").tofile(pcm_path)
+    hosts = start_hosts(exes, path, parakeet, pcm_path, abi)
+    check_finetuned_file(W, tuned, pcm)
+    pk = ParakeetContext.from_file(parakeet)
+    assert pk.full(pcm) == 0
+    pk_text = pk.full_text()
+    del pk
+    finetune_card_matches_cpu(tmp)
+    finish_hosts(hosts, refs, pk_text)
+    log(f"  phase_s={time.perf_counter() - t_phase:.1f}")
+    return refs["launches"]
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -2878,6 +3241,10 @@ def main() -> int:
             "whisper-bench -w 0, imatrix capture, whisper-quantize q4_k/iq2_xxs, "
             "card vs CPU", t_start)
     bench = check_tools(W, counters, path, wav, pcm, st, tools.name)
+
+    heading("11. the C ABI and fine-tuning: libwhisper_tpu_torch.so in process and the C "
+            "hosts on the card, fine-tuning at full width, card vs CPU", t_start)
+    check_abi_and_training(W, counters, path, pcm, turbo.name, here, (vad_path, pcm_vad, thr))
     turbo.cleanup()
     tools.cleanup()
 

@@ -2,11 +2,12 @@
 
 Verbatim copies must stay byte-identical to their originals (relative
 imports resolve inside each package, so no line differs); a copy that
-fixes a fault of its original is the original with the replacements of
-EDITS.  The two edited
-copies are held to the originals by behaviour: formats/quants.py (the
-optional native fast path dropped) and audio/mel.py (its numpy path here;
-the device mel in tests/test_torch_vad.py).
+fixes a fault of its original, or builds into the port's own directory, is
+the original with the replacements of EDITS (native.py).  The C ABI shim
+whisper_tpu_torch/native/whisper_abi.cpp is native/whisper_abi.cpp with the
+replacements of ABI_EDITS.  audio/mel.py is held to its original by
+behaviour (its numpy and native paths here; the device mel in
+tests/test_torch_vad.py).
 The same synthetic file through both loaders gives equal arrays, planes,
 vocab and hyperparameters.
 """
@@ -46,6 +47,7 @@ VERBATIM = [
     "utils/chess.py", "formats/imatrix.py", "formats/iq_encode.py",
     "formats/gguf.py", "cli/quantize.py", "evals/__init__.py", "evals/wer.py",
     "evals/data/english_spellings.json", "evals/data/LICENSE",
+    "formats/quants.py", "native.py",
 ]
 
 HP = WhisperHParams(n_vocab=51865, n_audio_ctx=64, n_audio_state=64,
@@ -75,7 +77,148 @@ EDITS = {
         _advance_stack(rules, [] if _is_end_of_sequence(rule[i]) else [(start_rule, i)],
                        stacks)"""),
     ],
+    # native.py: the unchanged native/wtpu_native.cpp builds into the
+    # port's own build directory, through a temporary directory renamed
+    # into place (processes building at once never load a half-written
+    # library)
+    "native.py": [
+        (b"""Set WTPU_NATIVE=0 to force the numpy paths.
+""",
+         b"""Set WTPU_NATIVE=0 to force the numpy paths.
+
+Port of whisper_tpu/native.py: the same unchanged native/wtpu_native.cpp,
+built with native/Makefile into whisper_tpu_torch/build/ (a temporary
+directory there, then renamed into place, so processes that build at once
+never load a half-written library).
+"""),
+        (b"""import subprocess
+import threading
+""",
+         b"""import subprocess
+import tempfile
+import threading
+"""),
+        (b"""_LIB_PATH = _NATIVE_DIR / "build" / "libwtpu_native.so"
+""",
+         b"""_LIB_PATH = Path(__file__).resolve().parent / "build" / "libwtpu_native.so"
+"""),
+        (b"""    try:
+        r = subprocess.run(["make", "-C", str(_NATIVE_DIR)],
+                           capture_output=True, text=True, timeout=300)
+        return r.returncode == 0 and _LIB_PATH.exists()
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+""",
+         b"""    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_LIB_PATH.parent) as tmp:
+        try:
+            r = subprocess.run(["make", "-C", str(_NATIVE_DIR), f"BUILD={tmp}"],
+                               capture_output=True, text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired):
+            return False
+        if r.returncode != 0:
+            return False
+        os.replace(Path(tmp) / _LIB_PATH.name, _LIB_PATH)
+    return True
+"""),
+    ],
 }
+
+# the C ABI shim (whisper_tpu_torch/native/whisper_abi.cpp) is
+# native/whisper_abi.cpp with these replacements: it embeds the port's
+# capi module, whisper_context_params' use_gpu and gpu_device reach the
+# port's init (which chooses the device from them), and so do
+# whisper_vad_context_params' (the original ignores both)
+ABI_EDITS = [
+    (b"""// whisper.h-shaped C ABI over the whisper_tpu Python engine.
+""",
+     b"""// whisper.h-shaped C ABI over the whisper_tpu_torch Python engine (the
+// PyTorch/CUDA port; native/whisper_abi.cpp with the edits that
+// tests/test_torch_copies.py lists).
+"""),
+    (b"""// sequence to whisper_tpu.capi \xe2\x80\x94 letting""",
+     b"""// sequence to whisper_tpu_torch.capi \xe2\x80\x94 letting"""),
+    (b"""// Build (see tests/test_c_abi.py):
+//   g++ -shared -fPIC native/whisper_abi.cpp -o libwhisper_tpu.so \\
+""",
+     b"""// Build (whisper_tpu_torch/abi.py does it at first use):
+//   g++ -shared -fPIC whisper_tpu_torch/native/whisper_abi.cpp \\
+//       -o whisper_tpu_torch/build/libwhisper_tpu_torch.so \\
+"""),
+    (b"""PyObject * g_capi = nullptr;   // whisper_tpu.capi module""",
+     b"""PyObject * g_capi = nullptr;   // whisper_tpu_torch.capi module"""),
+    (b"""        g_capi = PyImport_ImportModule("whisper_tpu.capi");""",
+     b"""        g_capi = PyImport_ImportModule("whisper_tpu_torch.capi");"""),
+    (b"""// cparams -> JSON for capi._apply_cparams (only the DTW fields act on TPU)
+static std::string cparams_to_json(const struct whisper_context_params & p) {
+    std::string js = "{";
+    js += "\\"dtw_token_timestamps\\": ";
+""",
+     b"""// cparams -> JSON for capi.init_from_file_with_cparams: use_gpu and
+// gpu_device choose the device, then the DTW fields act
+static std::string cparams_to_json(const struct whisper_context_params & p) {
+    std::string js = "{";
+    js += "\\"use_gpu\\": ";
+    js += p.use_gpu ? "true" : "false";
+    js += ", \\"gpu_device\\": " + std::to_string(p.gpu_device);
+    js += ", \\"dtw_token_timestamps\\": ";
+"""),
+    (b"""// the context params carry no TPU-relevant knobs; init ignores them
+struct whisper_vad_context * whisper_vad_init_from_file_with_params(
+        const char * path_model, struct whisper_vad_context_params params) {
+    (void) params;
+    return whisper_vad_init_from_file(path_model);
+}
+""",
+     b"""// use_gpu and gpu_device choose the VAD context's device (n_threads has
+// no knob here)
+static std::string vad_cparams_to_json(
+        const struct whisper_vad_context_params & p) {
+    std::string js = "{\\"use_gpu\\": ";
+    js += p.use_gpu ? "true" : "false";
+    js += ", \\"gpu_device\\": " + std::to_string(p.gpu_device) + "}";
+    return js;
+}
+
+struct whisper_vad_context * whisper_vad_init_from_file_with_params(
+        const char * path_model, struct whisper_vad_context_params params) {
+    const std::string js = vad_cparams_to_json(params);
+    return (struct whisper_vad_context *) (intptr_t) call_long(
+        "vad_init_from_file_with_cparams", 0, "(s,s)", path_model, js.c_str());
+}
+"""),
+    (b"""        struct whisper_vad_context_params params) {
+    (void) params;
+    if (!loader || !loader->read) return nullptr;
+""",
+     b"""        struct whisper_vad_context_params params) {
+    if (!loader || !loader->read) return nullptr;
+"""),
+    (b"""    PyObject * args = PyTuple_New(1);
+    PyTuple_SET_ITEM(args, 0, PyBytes_FromStringAndSize(buf.data(),
+                                                        (Py_ssize_t) buf.size()));
+    PyObject * res = call("vad_init_from_buffer", args);
+""",
+     b"""    PyObject * args = PyTuple_New(2);
+    PyTuple_SET_ITEM(args, 0, PyBytes_FromStringAndSize(buf.data(),
+                                                        (Py_ssize_t) buf.size()));
+    PyTuple_SET_ITEM(args, 1, PyUnicode_FromString(
+                                  vad_cparams_to_json(params).c_str()));
+    PyObject * res = call("vad_init_from_buffer_with_cparams", args);
+"""),
+    (b"""    struct whisper_vad_context_params p;  // src/whisper.cpp:4453-4460
+    p.n_threads  = 4;
+    p.use_gpu    = false;
+""",
+     b"""    // src/whisper.cpp:4453-4460, but use_gpu true: the port's entry points
+    // run on the card unless the host asks for the CPU
+    struct whisper_vad_context_params p;
+    p.n_threads  = 4;
+    p.use_gpu    = true;
+"""),
+    (b"""// public C surface, forwarded to whisper_tpu.capi_parakeet through the same""",
+     b"""// public C surface, forwarded to whisper_tpu_torch.capi_parakeet through the same"""),
+]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -86,6 +229,14 @@ def test_verbatim_copy(rel):
         assert a.count(old) == 1, (rel, old)
         a = a.replace(old, new)
     assert a == b, f"whisper_tpu_torch/{rel} drifted from whisper_tpu/{rel}"
+
+
+def test_abi_shim_is_the_original_with_edits():
+    a = (REPO / "native" / "whisper_abi.cpp").read_bytes()
+    for old, new in ABI_EDITS:
+        assert a.count(old) == 1, old
+        a = a.replace(old, new)
+    assert a == (REPO / "whisper_tpu_torch" / "native" / "whisper_abi.cpp").read_bytes()
 
 
 def test_output_writers_are_a_copy():
@@ -124,8 +275,13 @@ def test_log_mel_matches():
     mb, nb = TMEL.LogMel(filters)(pcm)
     assert na == nb
     np.testing.assert_array_equal(ma, mb)
-    with pytest.raises(NotImplementedError):
-        TMEL.LogMel(filters, backend="native")
+    # the native C mel (native/wtpu_native.cpp), built into each package's
+    # own directory: the same library code, the same mel
+    mc, nc = JMEL.LogMel(filters, backend="native")(pcm)
+    md, nd = TMEL.LogMel(filters, backend="native")(pcm)
+    assert nc == nd == na
+    np.testing.assert_array_equal(mc, md)
+    np.testing.assert_allclose(md, mb, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("qtype", ["Q4_0", "Q4_1", "Q5_0", "Q5_1", "Q8_0",

@@ -10,7 +10,10 @@ pass's rows, a VAD + DTW transcribe against the CPU's), and Parakeet-TDT
 f32 encoder within 1e-4 of max |enc| of the CPU's, its device mel within
 1e-5 of max |mel| of numpy), and the tools of phase 10 (the imatrix
 capture within 1e-4 of each tensor's largest sum of the CPU's, `ncalls`
-equal; whisper-stream with -ac 768 printing what the CPU prints).  They need a CUDA
+equal; whisper-stream with -ac 768 printing what the CPU prints), and the C
+ABI and fine-tuning (the C hosts and the library in process print what the
+port's transcribe() gives on the card, K1 and K4 launched from C; 3 AdamW
+steps' losses within rtol 1e-4 of the CPU's).  They need a CUDA
 card and skip without one (run them on the card with
 `python -m pytest tests/test_torch_gpu.py -m gpu`).
 
@@ -700,3 +703,101 @@ def test_stream_ac768_card_matches_cpu(cuda, tmp_path):
     after = {fn.__name__: fn.launches for fn in COUNTED}
     for name in ("qmmt_fused", "self_attention_qkv"):
         assert after[name] > before[name], name
+
+
+# ---------------------------------------------------------------------------
+# the C ABI and fine-tuning (whisper_tpu_torch/abi.py, capi.py, training/)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def abi_files(tmp_path_factory):
+    """The small decisive model of chip_smoke.py phase 5, 12 s of seeded
+    audio, and that audio as raw f32 PCM."""
+    from chip_smoke import SMALL_DIMS
+    from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
+    from whisper_tpu_torch.utils.synth import write_synth_model
+
+    d = tmp_path_factory.mktemp("abi")
+    path = str(d / "small-q5_0.bin")
+    write_synth_model(path, WhisperHParams(**SMALL_DIMS), seed=1, qtype="q5_0",
+                      decisive=True)
+    pcm = (0.1 * np.random.default_rng(5).standard_normal(16000 * 12)).astype(np.float32)
+    pcm.astype("<f4").tofile(d / "audio.pcm.f32")
+    return path, pcm, str(d / "audio.pcm.f32")
+
+
+def _card_segments(path, pcm, params_json):
+    import whisper_tpu_torch as W
+    from whisper_tpu_torch.capi import _params_from_json
+
+    return [(s.t0, s.t1, s.text, [t.id for t in s.tokens])
+            for s in W.transcribe(W.load(path), _params_from_json(params_json), pcm)]
+
+
+def test_c_hosts_on_the_card(cuda, abi_files):
+    import subprocess
+
+    from whisper_tpu_torch import abi
+
+    path, pcm, pcm_file = abi_files
+    want = _card_segments(path, pcm, abi.GREEDY)
+    assert len(want) >= 2
+    for src, extra, ok in (("whisper_tpu_torch/native/abi_host.c", ["cuda"], "ABI-HOST-OK"),
+                           ("native/test_abi_main.c", [], "C-ABI OK"),
+                           ("native/test_abi_structs.c", [], "STRUCT-ABI-OK"),
+                           ("native/test_abi_callbacks.c", [], "CALLBACKS-OK")):
+        exe = abi.build_host(abi.REPO / src)
+        r = subprocess.run([str(exe), path, pcm_file, *extra], capture_output=True,
+                           text=True, env=abi.host_env(), timeout=600)
+        assert r.returncode == 0 and ok in r.stdout, r.stdout + r.stderr
+        if src.endswith("abi_host.c"):
+            assert abi.seg_lines(r.stdout) == want
+        if src.endswith("main.c"):
+            assert [s[:3] for s in abi.seg_lines(r.stdout)] == [s[:3] for s in want]
+
+
+def test_library_in_process_on_the_card(cuda, abi_files):
+    import ctypes
+
+    from whisper_tpu_torch import abi
+    from whisper_tpu_torch.decoding.graphs import COUNTED
+    from whisper_tpu_torch.ops import enc_attn, qmm
+
+    path, pcm, _ = abi_files
+    lib = abi.load_library()
+    cp = lib.whisper_context_default_params()
+    assert cp.use_gpu
+    ctx = lib.whisper_init_from_file_with_params(path.encode(), cp)
+    assert ctx
+    fp = lib.whisper_full_default_params(0)
+    fp.language, fp.temperature_inc, fp.print_progress = b"en", 0.0, False
+    buf = np.ascontiguousarray(pcm, np.float32)
+    ptr = buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    assert lib.whisper_full(ctx, fp, ptr, len(buf)) == 0     # captures the graphs
+    for fn in COUNTED:
+        fn.launches = 0
+    assert lib.whisper_full(ctx, fp, ptr, len(buf)) == 0
+    assert qmm.qmmt_fused.launches > 0 and enc_attn.self_attention_qkv.launches > 0
+    assert abi.segments(lib, ctx) == _card_segments(path, pcm, abi.GREEDY)
+    lib.whisper_free(ctx)
+
+
+def test_vad_from_c_on_the_card(cuda, vad_file):
+    # the check lives in chip_smoke.py (its phase 11): the library's VAD at
+    # its default context params (the card) against the Python VAD's
+    # segments, at a threshold at the median of the CPU's probabilities
+    from chip_smoke import abi_vad_in_process
+    from whisper_tpu_torch import abi
+    from whisper_tpu_torch.models.vad import silero as VS
+
+    pcm = _vad_clip()
+    thr = float(np.median(VS.VadContext.from_file(vad_file, device="cpu").detect_speech(pcm)))
+    abi_vad_in_process(abi, vad_file, pcm, thr)
+
+
+def test_finetune_card_matches_cpu(cuda, tmp_path):
+    # the check lives in chip_smoke.py (its phase 11): 3 AdamW steps with
+    # the encoder trained, losses within rtol 1e-4 of the CPU's
+    from chip_smoke import finetune_card_matches_cpu
+
+    finetune_card_matches_cpu(str(tmp_path))

@@ -91,6 +91,11 @@ def test_isolation_no_jax_in_process(model_path):
         import whisper_tpu_torch.cli.vad_segments
         import whisper_tpu_torch.cli.parakeet_cli
         import whisper_tpu_torch.cli.parakeet_quantize
+        import whisper_tpu_torch.capi
+        import whisper_tpu_torch.abi
+        import whisper_tpu_torch.native
+        import whisper_tpu_torch.training.finetune
+        import whisper_tpu_torch.cli.finetune
         from whisper_tpu_torch.models.parakeet.context import ParakeetContext
         from whisper_tpu_torch.models.parakeet.hparams import ParakeetHParams
         from whisper_tpu_torch.models.parakeet.writer import (
@@ -123,7 +128,9 @@ def test_isolation_no_jax_in_process(model_path):
 def test_refusals(model_path):
     # CapturedWeight is ported (imatrix capture, cli/make_imatrix.py): it
     # hands each product's input to its collector and computes as before.
-    # What stays refused: the JAX package's native C mel.
+    # The JAX package's native C mel is ported too (whisper_tpu_torch/
+    # native.py; tests/test_torch_copies.py holds it to the JAX one's): what
+    # stays refused is a backend neither package has.
     from whisper_tpu_torch.audio.mel import LogMel
     from whisper_tpu_torch.models.whisper import model as M
 
@@ -138,8 +145,11 @@ def test_refusals(model_path):
     y = M._mm(x, CapturedWeight(["w"], w, Rec()), torch.float32)
     torch.testing.assert_close(y, x @ w, rtol=0, atol=0)
     assert seen == [(["w"], (3, 8))]
-    with pytest.raises(NotImplementedError):
-        LogMel(np.ones((80, 201), np.float32), backend="native")
+    mel, n_len_org = LogMel(np.ones((80, 201), np.float32), backend="native")(
+        np.zeros(16000, np.float32))
+    assert mel.shape == (80, 3100) and n_len_org == 99
+    with pytest.raises(ValueError, match="unknown mel backend"):
+        LogMel(np.ones((80, 201), np.float32), backend="jax")
 
 
 def test_default_device_needs_a_card(model_path, monkeypatch):

@@ -197,8 +197,13 @@ def test_device_mel_matches_jax_and_numpy():
     assert n == n_np == n_jax and got.shape == want_np.shape and got.dtype == np.float32
     for want in (want_jax, want_np):
         assert np.abs(got - want).max() <= MEL_RTOL * np.abs(want).max()
-    with pytest.raises(NotImplementedError):
-        TMEL.LogMel(filters, backend="native")
+    # the native C mel is ported (whisper_tpu_torch/native.py): the same
+    # library code as the JAX package's, so the same mel
+    got_c, n_c = TMEL.LogMel(filters, backend="native")(pcm)
+    want_c, _ = JMEL.LogMel(filters, backend="native")(pcm)
+    assert n_c == n_np
+    np.testing.assert_array_equal(got_c, want_c)
+    assert np.abs(got_c - want_np).max() <= MEL_RTOL * np.abs(want_np).max()
 
 
 @pytest.mark.parametrize("mel_backend,want", [("auto", "numpy"), ("numpy", "numpy"),

@@ -8,8 +8,10 @@ the start, 30 s of zeros + 200 at the end, power spectrum, mel filterbank dot,
 The numpy functions are copies of whisper_tpu/audio/mel.py's host path.
 `_log_mel_torch` is the counterpart of its batched-rfft device mel
 (`_log_mel_jax`): one `torch.fft.rfft` over all frames, f32 throughout, on
-the device the `LogMel` was given (backend="torch").  backend="native" (the
-JAX package's C helper) is not ported.
+the device the `LogMel` was given (backend="torch").  backend="native" is
+the JAX package's C helper (native/wtpu_native.cpp through
+whisper_tpu_torch/native.py), on the host; where no compiler builds it, the
+numpy path runs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -86,13 +88,10 @@ class LogMel:
     backend="torch" runs the batched-rfft mel on `device` (default the CUDA
     card, as every entry point of the port), within ~1e-5 of max |mel| of
     the numpy mel (two f32 FFTs' rounding, amplified by the log in quiet
-    bins)."""
+    bins); backend="native" runs the C helper on the host."""
 
     def __init__(self, filters: np.ndarray, backend: str = "numpy", device=None):
-        if backend == "native":
-            raise NotImplementedError(
-                "mel backend 'native' (the JAX package's C helper) is not ported")
-        if backend not in ("numpy", "torch"):
+        if backend not in ("numpy", "torch", "native"):
             raise ValueError(f"unknown mel backend {backend!r}")
         self.backend = backend
         self.np_filters = np.asarray(filters, dtype=np.float32)
@@ -116,4 +115,11 @@ class LogMel:
                 mel = _log_mel_torch(torch.from_numpy(padded).to(self.device),
                                      self.filters, self.window, n_len)
                 return mel.cpu().numpy(), n_len_org
+        if self.backend == "native":
+            from .. import native
+
+            mel = native.log_mel(padded, self.np_filters, N_FFT, HOP_LENGTH,
+                                 n_len)
+            if mel is not None:
+                return mel, n_len_org
         return _log_mel_numpy(padded, self.np_filters, self.np_window, n_len), n_len_org

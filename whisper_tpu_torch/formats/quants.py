@@ -418,12 +418,16 @@ def supported_quant_types() -> Tuple[int, ...]:
     return tuple(sorted(_QUANTIZERS))
 
 
+_NATIVE_TYPES = {GGML_TYPE_Q4_0: "q4_0", GGML_TYPE_Q5_0: "q5_0",
+                 GGML_TYPE_Q8_0: "q8_0"}
+
+
 def quantize(x: np.ndarray, ggml_type: int,
              imatrix: "np.ndarray | None" = None) -> bytes:
     """Quantize a float array to the packed byte layout of `ggml_type`.
 
-    Runs the numpy reference codecs below (the JAX package's optional native
-    C++ fast path is not carried over; its output is bit-identical).
+    Prefers the native C++ codecs (whisper_tpu.native, bit-identical to the
+    numpy reference implementations below) when the library is available.
 
     `imatrix`: per-input-channel importance weights (one f32 per column of
     a 2-D `x`).  REQUIRED for the IQ1/IQ2/IQ3 grid formats (the reference
@@ -450,6 +454,12 @@ def quantize(x: np.ndarray, ggml_type: int,
         return np.ascontiguousarray(x, dtype=np.float32).tobytes()
     if ggml_type == GGML_TYPE_F16:
         return np.ascontiguousarray(x, dtype=np.float32).astype(np.float16).tobytes()
+    if ggml_type in _NATIVE_TYPES:
+        from .. import native
+
+        out = native.quantize(_NATIVE_TYPES[ggml_type], np.asarray(x))
+        if out is not None:
+            return out
     fn = _QUANTIZERS.get(ggml_type)
     if fn is None:
         raise NotImplementedError(f"quantize to {type_name(ggml_type)} not supported")

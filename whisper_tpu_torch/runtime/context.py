@@ -240,6 +240,12 @@ class WhisperContext:
         self.mel, self.n_len_org = self.mel_fn(samples)
         self.timings.t_mel_us += int((time.perf_counter() - t0) * 1e6)
 
+    def set_mel(self, mel: np.ndarray, n_len_org: Optional[int] = None) -> None:
+        """whisper_set_mel: a caller's (n_mel, n_len) mel in place of
+        pcm_to_mel's."""
+        self.mel = np.asarray(mel, dtype=np.float32)
+        self.n_len_org = n_len_org if n_len_org is not None else mel.shape[1]
+
     @property
     def n_len(self) -> int:
         return 0 if self.mel is None else self.mel.shape[1]

@@ -59,9 +59,11 @@ def log_error(text: str) -> None:
 
 def print_system_info() -> str:
     """whisper_print_system_info: capability string for the active runtime
-    (torch and CUDA versions, the card, whether nvcc can build the kernels)."""
+    (torch and CUDA versions, the card, whether the host's C helpers built,
+    whether nvcc can build the kernels)."""
     import torch
 
+    from .. import native
     from ..ops import _cuda
 
     parts = [f"WHISPER_TPU_TORCH : torch = {torch.__version__}",
@@ -70,6 +72,7 @@ def print_system_info() -> str:
     parts.append(f"devices = {n}")
     if n:
         parts.append(f"device0 = {torch.cuda.get_device_name(0)}")
+    parts.append(f"NATIVE = {1 if native.get_lib() is not None else 0}")
     try:
         _cuda._nvcc()
         parts.append("NVCC = 1")
