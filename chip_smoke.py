@@ -104,7 +104,30 @@ Phases (any failure exits non-zero; nothing is caught):
      native/test_abi_parakeet.c on the Parakeet file): each exits 0 and
      prints the segments (or the first token, the segment count, the
      Parakeet text) the port's own Python calls give; meanwhile 3 AdamW
-     steps on a small model card vs CPU, the losses within rtol 1e-4.
+     steps on a small model card vs CPU, the losses within rtol 1e-4;
+ 12. scale-out (whisper_tpu_torch/parallel/), after the parent has freed
+     its memory, on phase 4's turbo file and 40 s and phase 8's Parakeet
+     file, in one 1-rank launch and one 2-rank launch (parallel/launch.py):
+     a. one rank over NCCL on a 1 x 1 mesh: the dense bf16 turbo file's
+        encode (K4), cross-K/V q8, a prompt pass and 3 steps, and a greedy
+        window through the window decoder's CUDA graphs (K3, the NCCL
+        all-reduces captured), bit for bit equal to tp=None;
+     b. two ranks sharing the card over gloo (NCCL refuses two ranks on one
+        device), Whisper tp=2 at full turbo width, dense bf16: encode,
+        cross-K/V f16 and q8, the prompt pass and 3 steps with f16 and q8
+        caches, a greedy window on the decoder's eager loop (gloo cannot be
+        captured), against the unsharded run on the card in the same rank
+        (max relative error <= 1e-2, tokens identical);
+     c. the same ranks, dp=2: transcribe_multihost of the 40 s on the
+        packed q5_0 file (K1, K3, K4 launched on each rank), both merged
+        lists identical and equal to transcribe_parallel(ctx, p, pcm, 2,
+        batched=False) on the card;
+     d. Parakeet tp=2, dense f32: the encode against the unsharded one
+        (<= 1e-4 under full_f32), TDT tokens equal;
+     e. fine-tuning dp=2: one step at full turbo width, encoder frozen, a
+        batch of 2, against one process on the same batch (loss and
+        leaves within 1e-4); ms per step and peak memory per rank.
+     Every wall time of b-e is that of two ranks sharing one card.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -3101,6 +3124,491 @@ def check_abi_and_training(W, counters, path: str, pcm: np.ndarray, tmp: str,
     return refs["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: scale-out on torch.distributed
+# ---------------------------------------------------------------------------
+
+# the wall times of phase 12's ranks are those of ranks that share ONE card
+# (NCCL refuses two ranks on one device): no scaling figure comes from them
+SHARED = "two ranks sharing one H100, gloo through the host"
+# tp=2 against unsharded at bf16, each reading with its own bound, near
+# the geometric mean of the sound runs' reading and what a planted fault
+# reads on the card (tests/test_torch_gpu_scale_out.py; PERF.md section
+# 6): the encoder 5.2e-5 sound, 1.3e-3 with the attention-output bias
+# added on both ranks; the logits 6.5e-4 sound, 3.3e-3 with the decoder's
+# biases added on both ranks
+TP_ENC_REL = 2.5e-4
+TP_LOGITS_REL = 1.5e-3
+# the bf16 cross-K: the reduce order may turn one rounding, one bf16 step
+# (at most 2^-7 of the largest value).  The q8 cross-K and the q8 self-KV
+# cache: codes within one quantisation step and scales (amax / 127 of
+# those bf16 values) within the same bound.  A rank-local amax moves the
+# q8 logits no further than the reduce order does (7.3e-4 against 6.5e-4),
+# so the cache's scales are held themselves.
+TP_XK_REL = 2.0 ** -7
+PARAKEET_TP_REL = 1e-4   # Parakeet tp=2 against unsharded, IEEE f32
+DP_FT_REL = 1e-4         # a dp=2 fine-tuning step against one process: loss, leaves
+# and the update (new - old leaf) of every decoder leaf.  AdamW's first step
+# moves each element by ~lr * sign(gradient), so leaf_rel stays ~lr / |leaf|
+# whatever the gradient; an update from one rank's half of the batch (the
+# gradients not all-reduced) turns signs and reads ~1 in the update
+DP_FT_STEP_REL = 1e-4
+
+
+def _rank_log(*a) -> None:
+    import torch.distributed as dist
+
+    log(f"  [rank {dist.get_rank()}]", *a)
+
+
+def _zero(counters) -> None:
+    for fn in counters:
+        fn.launches = 0
+
+
+def _counts(counters) -> dict:
+    return {fn.__name__: fn.launches for fn in counters}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def _window_args(ctx, pcm: np.ndarray):
+    """One 30 s window of `pcm` encoded on `ctx` (its filter tables), its
+    mel as a tensor, and the window decoder's prompt, masks and bucket."""
+    import whisper_tpu_torch as W
+    from whisper_tpu_torch.decoding import device_loop as DL
+    from whisper_tpu_torch.runtime.context import _bucket
+
+    ctx.pcm_to_mel(pcm)
+    ctx.encode_window(0)
+    hp, v, dev = ctx.hp, ctx.vocab, ctx.device
+    window = np.zeros((hp.n_mels, 2 * hp.n_audio_ctx), np.float32)
+    n = min(ctx.n_len, window.shape[1])
+    window[:, :n] = ctx.mel[:, :n]
+    prompt = [v.token_sot, v.lang_token(0), v.token_transcribe]
+    bt = _bucket(len(prompt))
+    padded = torch.zeros(bt, dtype=torch.long, device=dev)
+    padded[:len(prompt)] = torch.tensor(prompt)
+    base, initial = (torch.from_numpy(m).to(dev) for m in
+                     DL.build_masks(ctx.filter_tables, W.TranscribeParams()))
+    return torch.from_numpy(window).to(dev), prompt, bt, padded, base, initial
+
+
+def _decode_chain(M, params, xk, xv, prompt, hp, itype: str, tp, n_steps: int = 3):
+    """A prompt pass and n_steps greedy steps: (the logits of each call,
+    the tokens chosen, the self-KV cache)."""
+    dev = xk.codes.device if isinstance(xk, M.XK8) else xk.device
+    cache = M.new_cache(hp, 1, torch.bfloat16, itype=itype, device=dev, tp=tp)
+    toks = torch.tensor([prompt], device=dev)
+    pos = torch.arange(len(prompt), device=dev)[None]
+    outs, chosen = [], []
+    for s in range(n_steps + 1):
+        lg, cache = M.decode_step(params, toks, pos, 0 if s == 0 else len(prompt) + s - 1,
+                                  cache, xk, xv, hp, dtype=torch.bfloat16, tp=tp)
+        outs.append(lg[:, -1])
+        toks = lg[:, -1:].argmax(-1)
+        chosen.append(int(toks))
+        pos = torch.full((1, 1), len(prompt) + s, device=dev)
+    return torch.cat(outs), chosen, cache
+
+
+def _q8_against(codes, scale, codes_ref, scale_ref) -> dict:
+    """int8 codes and their scales against the unsharded run's: the
+    scales' relative error, the largest code step, the codes that turned."""
+    d = (codes.float() - codes_ref.float()).abs()
+    return {"scale_rel": _rel(scale, scale_ref), "code_step_max": float(d.max()),
+            "codes_turned": int((d > 0).sum())}
+
+
+def scale_out_nccl(path: str, pcm: np.ndarray) -> dict:
+    """Phase 12a, one rank over NCCL on a 1 x 1 mesh: the dense bf16 turbo
+    file's encode (K4), cross-K/V q8 and the window decoder through its CUDA
+    graphs (K3, with the NCCL all-reduces captured) against tp=None, bit for
+    bit."""
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.decoding import device_loop as DL
+    from whisper_tpu_torch.decoding import graphs as G
+    from whisper_tpu_torch.models.whisper import model as M
+    from whisper_tpu_torch.models.whisper.load import load_model
+    from whisper_tpu_torch.parallel import mesh as PM
+    from whisper_tpu_torch.parallel import sharding as PS
+    from whisper_tpu_torch.runtime.context import WhisperContext
+
+    t0 = time.perf_counter()
+    ctx = WhisperContext(load_model(path), use_packed_weights=False)
+    hp, bf16 = ctx.hp, torch.bfloat16
+    assert ctx.compute_dtype == bf16 and "blocks_packed" not in ctx.params["dec"]
+    mesh = PM.make_mesh(1, 1)
+    tp = PM.axis_group(mesh, "tp")
+    assert dist.get_backend(tp) == "nccl"
+    local = PS.shard_params(ctx.params, mesh, hp)
+    mel, prompt, bt, padded, base, initial = _window_args(ctx, pcm)
+    _rank_log(f"a. nccl 1x1: load_s={time.perf_counter() - t0:.1f} "
+              f"backend={dist.get_backend(tp)} mesh={tuple(mesh.shape)}")
+    counters = G.COUNTED
+    with G.DEVICE_LOCK:
+        _zero(counters)
+        enc_tp = M.encode(local, mel, hp, dtype=bf16, tp=tp)
+        xk_tp, xv_tp = M.compute_cross_kv(local, enc_tp, hp, dtype=bf16, itype="q8", tp=tp)
+        n_enc = _counts(counters)
+        enc_1 = M.encode(ctx.params, mel, hp, dtype=bf16)
+        xk_1, xv_1 = M.compute_cross_kv(ctx.params, enc_1, hp, dtype=bf16, itype="q8")
+        lg_tp, tok_tp, _ = _decode_chain(M, local, xk_tp, xv_tp, prompt, hp, "q8", tp)
+        lg_1, tok_1, _ = _decode_chain(M, ctx.params, xk_1, xv_1, prompt, hp, "q8", None)
+    same = (torch.equal(enc_tp, enc_1) and all(torch.equal(a, b) for a, b in zip(
+        (*xk_tp, *xv_tp), (*xk_1, *xv_1))) and torch.equal(lg_tp, lg_1) and tok_tp == tok_1)
+    eot, beg = ctx.vocab.token_eot, ctx.vocab.token_beg
+    fns = {name: DL.make_window_decoder(hp, 1, bt, bf16, False, False, eot, beg,
+                                        kv_itype="q8", tp=g)
+           for name, g in (("tp", tp), ("none", None))}
+    inputs = {"tp": (local, xk_tp, xv_tp), "none": (ctx.params, xk_1, xv_1)}
+    res, ms = {}, {}
+    _zero(counters)
+    for name, fn in fns.items():
+        p, xk, xv = inputs[name]
+        for rep in range(2):             # the first call captures the graphs
+            torch.cuda.synchronize()
+            steps0, t = fn.steps, time.perf_counter()
+            res[name] = fn(p, padded, len(prompt), xk, xv, base, initial, 0.0, 0,
+                           ctx.n_len_org, 0, 0)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t) * 1e3 / max(1, fn.steps - steps0)
+    n_win = _counts(counters)
+    fields_equal = all(np.array_equal(a, b) for a, b in zip(res["tp"], res["none"]))
+    _rank_log(f"a. encode + cross-K/V q8 + prompt pass + 3 steps with tp == tp=None bit for "
+              f"bit: {same}; tokens={tok_tp}; window through graphs: tokens={int(res['tp'].n_tok[0])} "
+              f"WindowResult equal={fields_equal} graphs_captured={fns['tp'].graphs} "
+              f"eager_windows={fns['tp'].eager_windows} ms_per_step tp={ms['tp']:.3f} "
+              f"tp=None={ms['none']:.3f} (NVIDIA card, one rank); launches encode={n_enc} "
+              f"windows={n_win}")
+    assert same and fields_equal, "a 1 x 1 NCCL mesh must compute what tp=None computes"
+    assert fns["tp"].graphs > 0 and fns["tp"].eager_windows == 0
+    assert n_enc["self_attention_qkv"] > 0 and n_win["self_attend_q8"] > 0
+    return {"same": same and fields_equal, "graphs": fns["tp"].graphs, "ms_tp": ms["tp"],
+            "ms_none": ms["none"], "launches": n_enc, "window_launches": n_win}
+
+
+def _tp_whisper(wm, pcm: np.ndarray, counters) -> dict:
+    """Phase 12b on this rank: tp=2 over gloo at full turbo width (dense
+    bf16) against the unsharded run on the card in this process."""
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.decoding import device_loop as DL
+    from whisper_tpu_torch.decoding import graphs as G
+    from whisper_tpu_torch.models.whisper import model as M
+    from whisper_tpu_torch.parallel import mesh as PM
+    from whisper_tpu_torch.parallel import sharding as PS
+    from whisper_tpu_torch.runtime.context import WhisperContext
+
+    t0 = time.perf_counter()
+    ctx = WhisperContext(wm, use_packed_weights=False)
+    hp, bf16 = ctx.hp, torch.bfloat16
+    mesh = PM.make_mesh(1, 2)
+    tp = PM.axis_group(mesh, "tp")
+    r, k = PM.group_rank(tp), hp.n_text_head // 2
+    local = PS.shard_params(ctx.params, mesh, hp)
+    mel, prompt, bt, padded, base, initial = _window_args(ctx, pcm)
+    t_setup = time.perf_counter() - t0
+    out = {}
+    with G.DEVICE_LOCK:
+        _zero(counters)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        enc_tp = M.encode(local, mel, hp, dtype=bf16, tp=tp)
+        torch.cuda.synchronize()
+        t_enc_tp = time.perf_counter() - t
+        n_enc = _counts(counters)
+        t = time.perf_counter()
+        enc_1 = M.encode(ctx.params, mel, hp, dtype=bf16)
+        torch.cuda.synchronize()
+        t_enc_1 = time.perf_counter() - t
+        out["enc_rel"] = _rel(enc_tp, enc_1)
+        for itype in ("f16", "q8"):
+            xk_tp, xv_tp = M.compute_cross_kv(local, enc_tp, hp, dtype=bf16, itype=itype, tp=tp)
+            xk_1, xv_1 = M.compute_cross_kv(ctx.params, enc_1, hp, dtype=bf16, itype=itype)
+            heads = (lambda a: a[:, r * k:(r + 1) * k])
+            if itype == "q8":
+                xk_rel = _rel(xk_tp.codes * xk_tp.scale[..., None],
+                              heads(xk_1.codes * xk_1.scale[..., None]))
+                out["xk8"] = _q8_against(xk_tp.codes, xk_tp.scale, heads(xk_1.codes),
+                                         heads(xk_1.scale))
+            else:
+                xk_rel = _rel(xk_tp, heads(xk_1))
+            _zero(counters)
+            lg_tp, tok_tp, kv_tp = _decode_chain(M, local, xk_tp, xv_tp, prompt, hp, itype, tp)
+            n_dec = _counts(counters)
+            lg_1, tok_1, kv_1 = _decode_chain(M, ctx.params, xk_1, xv_1, prompt, hp, itype, None)
+            if itype == "q8":   # the self-KV cache: this rank's heads, every row's scale
+                out["kv8"] = _q8_against(kv_tp.kv, kv_tp.scale,
+                                         kv_1.kv[:, :, r * k:(r + 1) * k], kv_1.scale)
+            out[itype] = {"xk_rel": xk_rel, "logits_rel": _rel(lg_tp, lg_1),
+                          "tokens": tok_tp, "tokens_ref": tok_1, "launches": n_dec}
+    eot, beg = ctx.vocab.token_eot, ctx.vocab.token_beg
+    xk_tp, xv_tp = M.compute_cross_kv(local, enc_tp, hp, dtype=bf16, itype="q8", tp=tp)
+    xk_1, xv_1 = M.compute_cross_kv(ctx.params, enc_1, hp, dtype=bf16, itype="q8")
+    fn_tp = DL.make_window_decoder(hp, 1, bt, bf16, False, False, eot, beg, kv_itype="q8",
+                                   tp=tp)
+    fn_1 = DL.make_window_decoder(hp, 1, bt, bf16, False, False, eot, beg, kv_itype="q8")
+    _zero(counters)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res_tp = fn_tp(local, padded, len(prompt), xk_tp, xv_tp, base, initial, 0.0, 0,
+                   ctx.n_len_org, 0, 0)
+    t_win = time.perf_counter() - t
+    n_win = _counts(counters)
+    res_1 = fn_1(ctx.params, padded, len(prompt), xk_1, xv_1, base, initial, 0.0, 0,
+                 ctx.n_len_org, 0, 0)
+    n = int(res_1.n_tok[0])
+    out["window"] = {"tokens": res_tp.tok_id[0, :int(res_tp.n_tok[0])].tolist(),
+                     "tokens_ref": res_1.tok_id[0, :n].tolist(),
+                     "eager_windows": fn_tp.eager_windows, "graphs": fn_tp.graphs,
+                     "launches": n_win,
+                     "ms_per_step": t_win * 1e3 / max(1, fn_tp.steps)}
+    _rank_log(
+        f"b. tp=2 gloo dense bf16: setup_s={t_setup:.1f} encode_rel={out['enc_rel']:.3e} "
+        f"encode_ms tp={t_enc_tp * 1e3:.1f} unsharded={t_enc_1 * 1e3:.1f} ({SHARED}) "
+        + " ".join(f"{it}: xk_rel={out[it]['xk_rel']:.3e} logits_rel={out[it]['logits_rel']:.3e} "
+                   f"tokens={out[it]['tokens']} ref={out[it]['tokens_ref']}"
+                   for it in ("f16", "q8"))
+        + "".join(f" q8 {name}: scale_rel={out[key]['scale_rel']:.3e} code_step_max="
+                  f"{out[key]['code_step_max']:.0f} codes_turned={out[key]['codes_turned']}"
+                  for name, key in (("cross-K", "xk8"), ("self-KV cache", "kv8")))
+        + f" window: n_tok={len(out['window']['tokens'])} ref={n} eager_windows="
+          f"{fn_tp.eager_windows} graphs={fn_tp.graphs} ms_per_step="
+          f"{out['window']['ms_per_step']:.2f} ({SHARED}); launches encode={n_enc} "
+          f"q8 steps={out['q8']['launches']} window={n_win}")
+    assert out["enc_rel"] <= TP_ENC_REL, out["enc_rel"]
+    assert out["f16"]["xk_rel"] <= TP_XK_REL, out["f16"]
+    for key in ("xk8", "kv8"):
+        assert out[key]["code_step_max"] <= 1 and out[key]["scale_rel"] <= TP_XK_REL, out[key]
+    for it in ("f16", "q8"):
+        assert out[it]["logits_rel"] <= TP_LOGITS_REL, out[it]
+        assert out[it]["tokens"] == out[it]["tokens_ref"], out[it]
+    assert out["window"]["tokens"] == out["window"]["tokens_ref"]
+    assert dist.get_backend(tp) == "gloo" and fn_tp.eager_windows == 1 and fn_tp.graphs == 0
+    assert n_enc["self_attention_qkv"] > 0 and out["q8"]["launches"]["self_attend_q8"] > 0
+    assert n_win["self_attend_q8"] > 0
+    out["launches"] = {"encode": n_enc, "window": n_win}
+    del ctx, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_transcribe(wm, pcm: np.ndarray, counters) -> dict:
+    """Phase 12c on this rank: `transcribe_multihost` of the 40 s on the
+    packed q5_0 turbo context (q8 cache), then `transcribe_parallel(...,
+    2, batched=False)` on the same context."""
+    import whisper_tpu_torch as W
+    from whisper_tpu_torch.decoding.parallel import transcribe_parallel
+    from whisper_tpu_torch.parallel.multihost import make_global_mesh, transcribe_multihost
+    from whisper_tpu_torch.runtime.context import WhisperContext
+
+    ctx = WhisperContext(wm, kv_itype="q8")
+    assert ctx.use_packed_weights
+    mesh = make_global_mesh(n_tp=1)
+    p = W.TranscribeParams()
+    W.transcribe(ctx, p, pcm[:16000 * 3])              # warm-up (lazy CUDA set-up)
+    _zero(counters)
+    t = time.perf_counter()
+    segs = transcribe_multihost(ctx, p, pcm)
+    wall = time.perf_counter() - t
+    launches = _counts(counters)
+    key = [(s.t0, s.t1, s.text) for s in segs]
+    ref = [(s.t0, s.t1, s.text) for s in transcribe_parallel(ctx, p, pcm, 2, batched=False)]
+    _rank_log(f"c. dp=2 transcribe_multihost: mesh={tuple(mesh.shape)} segments={len(key)} "
+              f"equal to transcribe_parallel(2, batched=False): {key == ref} wall_s={wall:.3f} "
+              f"({SHARED}) launches={json.dumps(launches)}")
+    assert key == ref and key
+    for name in ("qmmt_fused", "self_attend_q8", "self_attention_qkv"):
+        assert launches[name] > 0, name
+    del ctx
+    torch.cuda.empty_cache()
+    return {"segs": key, "wall_s": wall, "launches": launches}
+
+
+def _tp_parakeet(parakeet_path: str, pcm: np.ndarray) -> dict:
+    """Phase 12d on this rank: phase 8's Parakeet file, dense f32, its
+    encode of the 40 s at tp=2 against the unsharded one, and the TDT
+    tokens of each."""
+    from whisper_tpu_torch.decoding.graphs import DEVICE_LOCK, full_f32
+    from whisper_tpu_torch.models.parakeet import decode as PD
+    from whisper_tpu_torch.models.parakeet import model as PKM
+    from whisper_tpu_torch.models.parakeet.context import ParakeetContext
+    from whisper_tpu_torch.parallel import mesh as PM
+    from whisper_tpu_torch.parallel.parakeet_sharding import shard_parakeet_params
+
+    t0 = time.perf_counter()
+    pk = ParakeetContext.from_file(parakeet_path, use_packed_weights=False)
+    hp = pk.hp
+    mesh = PM.make_mesh(1, 2)
+    tp = PM.axis_group(mesh, "tp")
+    local = shard_parakeet_params(pk.params, mesh)
+    pk.pcm_to_mel(pcm)
+    mel = torch.from_numpy(pk.mel[None]).to(pk.device)
+    t_setup = time.perf_counter() - t0
+    toks = {}
+    with DEVICE_LOCK, full_f32():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        enc_tp = PKM.encode(local, mel, mel.shape[1], hp, tp=tp)
+        torch.cuda.synchronize()
+        t_tp = time.perf_counter() - t
+        enc_1 = PKM.encode(pk.params, mel, mel.shape[1], hp)
+        rel = _rel(enc_tp, enc_1)
+        for name, p, e in (("tp", local, enc_tp), ("none", pk.params, enc_1)):
+            n = e.shape[1]
+            h = torch.zeros(hp.n_pred_layers, hp.n_pred_dim, device=pk.device)
+            res = PD.tdt_greedy_decode(PD.TdtLoop(p, hp), e[0], n, h, h.clone(),
+                                       PD.max_out_for(n, hp))
+            toks[name] = np.array(res[0][:res[6]]).tolist()
+    _rank_log(f"d. parakeet tp=2 dense f32: setup_s={t_setup:.1f} frames={enc_tp.shape[1]} "
+              f"encode_rel={rel:.3e} encode_ms tp={t_tp * 1e3:.1f} ({SHARED}) "
+              f"tokens={len(toks['tp'])} equal={toks['tp'] == toks['none']}")
+    assert rel <= PARAKEET_TP_REL, rel
+    assert toks["tp"] == toks["none"] and toks["tp"]
+    del pk, local
+    torch.cuda.empty_cache()
+    return {"rel": rel, "tokens": toks["tp"]}
+
+
+def _dp_finetune(wm, pcm: np.ndarray) -> dict:
+    """Phase 12e on this rank: one fine-tuning step at dp=2 (encoder
+    frozen, a batch of 2: one 30 s window each), then on rank 0 the same
+    step in one process: the loss and every leaf within DP_FT_REL."""
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.audio.mel import LogMel
+    from whisper_tpu_torch.parallel.multihost import make_global_mesh
+    from whisper_tpu_torch.training import finetune as TF
+    from whisper_tpu_torch.training.opt import OptimizerParams
+
+    hp, v = wm.hparams, wm.vocab
+    rng = np.random.default_rng(0)
+    samples = []
+    for start in (0, 10):
+        mel, _ = LogMel(wm.filters.data)(pcm[16000 * start:16000 * (start + 30)])
+        prompt = [v.token_sot, v.lang_token(0), v.token_transcribe]
+        body = rng.integers(100, 5000, FT_TOKENS - len(prompt) - 1).tolist()
+        samples.append((np.ascontiguousarray(mel[:, :2 * hp.n_audio_ctx]),
+                        np.array(prompt + body + [v.token_eot], np.int32)))
+    batch = TF._DictBatcher.collate(samples, FT_TOKENS)
+    opt = lambda _it: OptimizerParams(alpha=FT_LR)
+    mesh = make_global_mesh(n_tp=1)
+
+    def one_step(mesh):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ctx = TF.make_finetune_context(wm, freeze_encoder=True, get_opt_pars=opt, mesh=mesh)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = ctx.step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        return ctx.params, loss, ms, peak
+
+    leaves, loss, ms, peak = one_step(mesh)
+    _rank_log(f"e. fine-tune dp=2 (encoder frozen, batch 2): loss={loss:.6f} ms_per_step={ms:.1f} "
+              f"peak_above_start={peak} ({SHARED})")
+    out = {"loss": loss, "ms": ms, "peak": peak}
+    if dist.get_rank() == 0:
+        solo, loss_1, ms_1, peak_1 = one_step(None)
+        a, b = _flat_leaves(leaves), _flat_leaves(solo)
+        leaf_rel = max(_rel(a[k], b[k]) for k in a)
+        orig = _flat_leaves(wm.params)
+        step_rel = max(_rel(a[k] - torch.from_numpy(orig[k]).to(a[k].device),
+                            b[k] - torch.from_numpy(orig[k]).to(b[k].device))
+                       for k in a if not k.startswith(".enc"))
+        loss_rel = abs(loss - loss_1) / abs(loss_1)
+        _rank_log(f"e. one process, the same batch: loss={loss_1:.6f} ms_per_step={ms_1:.1f} "
+                  f"peak_above_start={peak_1}; dp=2 against it: loss_rel={loss_rel:.3e} "
+                  f"max leaf rel={leaf_rel:.3e} max update rel={step_rel:.3e}")
+        assert loss_rel <= DP_FT_REL and leaf_rel <= DP_FT_REL, (loss_rel, leaf_rel)
+        assert step_rel <= DP_FT_STEP_REL, step_rel
+        out.update(loss_solo=loss_1, loss_rel=loss_rel, leaf_rel=leaf_rel, step_rel=step_rel)
+        del solo
+    del leaves
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _flat_leaves(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k2: v2 for k in tree for k2, v2 in _flat_leaves(tree[k], f"{prefix}.{k}").items()}
+    return {prefix: tree}
+
+
+def scale_out_gloo(path: str, parakeet_path: str, pcm: np.ndarray) -> dict:
+    """Phases 12b-e on each of two ranks that share the card (gloo): the
+    turbo file is read once and serves b (dense bf16), c (packed q5_0) and
+    e (f32)."""
+    from whisper_tpu_torch.decoding import graphs as G
+    from whisper_tpu_torch.models.whisper.load import load_model
+
+    t0 = time.perf_counter()
+    wm = load_model(path)
+    _rank_log(f"read_s={time.perf_counter() - t0:.1f}")
+    counters = G.COUNTED
+    out = {}
+    t = time.perf_counter()
+    out["tp"] = _tp_whisper(wm, pcm[:16000 * 30], counters)
+    out["tp"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["dp"] = _dp_transcribe(wm, pcm, counters)
+    out["dp"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["parakeet"] = _tp_parakeet(parakeet_path, pcm)
+    out["parakeet"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["finetune"] = _dp_finetune(wm, pcm)
+    out["finetune"]["s"] = time.perf_counter() - t
+    _rank_log("seconds: " + " ".join(f"{k}={v['s']:.1f}" for k, v in out.items()))
+    return out
+
+
+def check_scale_out(path: str, parakeet: str, pcm: np.ndarray, here: Path) -> None:
+    """Phase 12: one 1-rank launch over NCCL (a), one 2-rank launch over
+    gloo on the same card (b-e; parallel/launch.py); the ranks' results
+    held against each other here."""
+    import gc
+
+    from whisper_tpu_torch.parallel.launch import launch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  parent: memory_allocated={torch.cuda.memory_allocated()} after freeing; "
+        f"{nvidia_smi_line()}")
+    smoke = str(here / "chip_smoke.py")
+    t = time.perf_counter()
+    (a,) = launch(f"{smoke}:scale_out_nccl", 1, (path, pcm[:16000 * 30]), backend="nccl",
+                  timeout=300, echo=True)
+    log(f"  a. launch_s={time.perf_counter() - t:.1f}")
+    t = time.perf_counter()
+    ranks = launch(f"{smoke}:scale_out_gloo", 2, (path, parakeet, pcm), backend="gloo",
+                   timeout=600, echo=True)
+    log(f"  b-e. launch_s={time.perf_counter() - t:.1f}")
+    r0, r1 = ranks
+    assert r0["tp"]["window"]["tokens"] == r1["tp"]["window"]["tokens"]
+    for it in ("f16", "q8"):
+        assert r0["tp"][it]["tokens"] == r1["tp"][it]["tokens"]
+    assert r0["dp"]["segs"] == r1["dp"]["segs"], "the DP ranks merged other lists"
+    assert r0["parakeet"]["tokens"] == r1["parakeet"]["tokens"]
+    assert r0["finetune"]["loss"] == r1["finetune"]["loss"]
+    log(f"  ranks agree: tp tokens, dp merged lists ({len(r0['dp']['segs'])} segments), "
+        f"parakeet tokens, dp fine-tune loss; launches per rank: "
+        + json.dumps([{"tp_encode": r["tp"]["launches"]["encode"],
+                       "tp_window": r["tp"]["launches"]["window"],
+                       "dp": r["dp"]["launches"]} for r in ranks]))
+    log(f"  {nvidia_smi_line()}")
+    log(f"  phase_s={time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -3245,6 +3753,11 @@ def main() -> int:
     heading("11. the C ABI and fine-tuning: libwhisper_tpu_torch.so in process and the C "
             "hosts on the card, fine-tuning at full width, card vs CPU", t_start)
     check_abi_and_training(W, counters, path, pcm, turbo.name, here, (vad_path, pcm_vad, thr))
+
+    heading("12. scale-out: a 1 x 1 NCCL mesh through graphs; two ranks on the card over "
+            "gloo: Whisper tp=2, transcribe_multihost dp=2, Parakeet tp=2, fine-tuning dp=2",
+            t_start)
+    check_scale_out(path, os.path.join(turbo.name, "parakeet-q5_0.bin"), pcm, here)
     turbo.cleanup()
     tools.cleanup()
 

@@ -96,6 +96,10 @@ def test_isolation_no_jax_in_process(model_path):
         import whisper_tpu_torch.native
         import whisper_tpu_torch.training.finetune
         import whisper_tpu_torch.cli.finetune
+        import whisper_tpu_torch.parallel.launch
+        import whisper_tpu_torch.parallel.multihost
+        import whisper_tpu_torch.parallel.parakeet_sharding
+        import whisper_tpu_torch.parallel.sharding
         from whisper_tpu_torch.models.parakeet.context import ParakeetContext
         from whisper_tpu_torch.models.parakeet.hparams import ParakeetHParams
         from whisper_tpu_torch.models.parakeet.writer import (

@@ -38,6 +38,17 @@ argmax and exact.
 `parity=True` decodes in the ggml-CPU parity mode (models/whisper/model.py
 `decode_step(parity)`): an f16 cache, one more dtype at its one address,
 and every prompt pass, capture and eager step inside graphs.full_f32.
+
+`tp=` (a tensor-parallel process group, parallel/mesh.py) runs every
+decode_step on the rank's H/tp heads with its caches and cross-K/V cut
+the same way.  Sampling, the filters and beam selection run on every rank
+alike: after the last all-reduce every rank holds the same logits, and
+the same seeded generators draw the same numbers, so the ranks choose the
+same tokens with no broadcast.  NCCL's collectives are captured into the
+segment graphs with the rest of the step; gloo's run on the host and
+cannot be, so under a gloo group the decoder runs its eager loop on the
+card too.  The group's backend decides, and the choice shows in the
+`eager_windows` counter and is logged once.
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ import torch
 
 from ..models.whisper import model as M
 from ..models.whisper.hparams import CHUNK_SIZE, WhisperHParams
+from ..runtime.logging import log_info
 from . import graphs as CG
 from .logits import LogitFilterTables
 
@@ -360,7 +372,7 @@ class LoopState:
 
     def __init__(self, hp: WhisperHParams, W: int, G: int, n_max: int,
                  n_cells: int, cache_dtype, kv_itype: str, xk, xv, n_mask: int,
-                 V: int, dev):
+                 V: int, dev, tp=None):
         def z(dtype, *shape):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
@@ -368,7 +380,7 @@ class LoopState:
         R = W * G
         self.W, self.G = W, G
         self.cache = M.new_cache(hp, R, cache_dtype, itype=kv_itype, device=dev,
-                                 n_cells=n_cells)
+                                 n_cells=n_cells, tp=tp)
         # one window's cross-K/V (L, H, Tc, d), or W windows' (L, W, H, Tc, d)
         self.xk, self.xv = (_map_planes(lambda a: z(a.dtype, *a.shape), x)
                             for x in (xk, xv))
@@ -446,7 +458,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                         compute_dtype, no_timestamps: bool,
                         single_segment: bool, vocab_eot: int, vocab_beg: int,
                         kv_itype: str = "f16", strategy: str = "greedy",
-                        n_windows: int = 1, parity: bool = False):
+                        n_windows: int = 1, parity: bool = False, tp=None):
     """Build the whole-window decode function for one (lane count, prompt
     bucket, timestamp mode, strategy, window count): "greedy" (greedy or
     best-of sampling lanes) or "beam" (beam search at t=0).
@@ -465,6 +477,10 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
     parity: the ggml-CPU parity mode (compute_dtype f16, an f16 cache),
     as the JAX package's `make_window_decoder(parity=True)`.
 
+    tp: a tensor-parallel process group; params, xk and xv are this rank's
+    part (module docstring).  Under a group whose backend is not NCCL the
+    card runs the eager loop (the collectives cannot be captured).
+
     On a CUDA tensor the steps replay CUDA graphs, one per attention-bucket
     segment and sampling branch, captured at first use over the decoder's
     LoopState; on a CPU tensor the same step runs eagerly.
@@ -473,10 +489,15 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
     Counters on the returned function: `windows` (windows decoded),
     `readbacks` (host reads of the done flag, and one read of the results
     per call), `steps` (steps run, those past the windows' end included),
-    `graphs` (graphs captured) and `capture_us` (time spent warming up and
-    capturing them)."""
+    `graphs` (graphs captured), `capture_us` (time spent warming up and
+    capturing them) and `eager_windows` (windows decoded on the eager loop:
+    on the CPU, through `.eager`, or on the card under a non-NCCL tp
+    group)."""
     if strategy not in ("greedy", "beam"):
         raise ValueError(f"unknown window strategy {strategy!r}")
+    # collectives over NCCL can be captured into the segment graphs; gloo's
+    # run on the host
+    graphs_ok = tp is None or torch.distributed.get_backend(tp) == "nccl"
     n_max = hp.n_text_ctx // 2 - 4
     eot, beg = vocab_eot, vocab_beg
     W, G = n_windows, n_beams
@@ -603,7 +624,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
         logits_next, _ = M.decode_step(
             params, tok[:, None], step_pos, st.head + i, st.cache, st.xk, st.xv,
             hp, dtype=compute_dtype, attn_mask=st.attn_mask, attn_ctx=attn_ctx,
-            xkv_group=G if native else 1, parity=parity)
+            xkv_group=G if native else 1, parity=parity, tp=tp)
         st.logits_row.copy_(logits_next[:, 0])
         st.i.add_(1)
 
@@ -617,7 +638,7 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
         if held["sig"] != sig:
             held.update(sig=sig, graphs={}, pool=None, st=LoopState(
                 hp, W, G, n_max, n_cells, cache_dtype, kv_itype, xk, xv,
-                base_mask.shape[0], V, dev))
+                base_mask.shape[0], V, dev, tp))
         return held["st"]
 
     def segment_graphs(st: LoopState, params, temperature: float):
@@ -646,12 +667,12 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
         softmax, the rows' additive pad mask (W, 1, 1, C) or None)."""
         dev = prompts.device
         if not native:
-            cache1 = M.new_cache(hp, 1, cache_dtype, itype=kv_itype, device=dev)
+            cache1 = M.new_cache(hp, 1, cache_dtype, itype=kv_itype, device=dev, tp=tp)
             pos = torch.clamp(torch.arange(prompt_bucket, device=dev), 0,
                               hp.n_text_ctx - 1)[None, :]
             logits_all, cache1 = M.decode_step(
                 params, prompts[None, :], pos, 0, cache1, xk, xv, hp,
-                dtype=compute_dtype, attn_ctx=prompt_ctx, parity=parity)
+                dtype=compute_dtype, attn_ctx=prompt_ctx, parity=parity, tp=tp)
             last = logits_all[:, prompt_lens[0] - 1]                    # (1, V)
             return cache1, last, torch.softmax(last[0].float(), dim=-1), None
         # left-pad: cell c of row w holds token c - shift_w; cells below
@@ -662,10 +683,10 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
         prompt_lp = prompts.gather(1, torch.clamp(cells, 0, prompt_bucket - 1))
         pos = torch.clamp(cells, 0, hp.n_text_ctx - 1)
         cache_w = M.new_cache(hp, W, cache_dtype, itype=kv_itype, device=dev,
-                              n_cells=n_cells)
+                              n_cells=n_cells, tp=tp)
         logits_all, cache_w = M.decode_step(
             params, prompt_lp, pos, 0, cache_w, xk, xv, hp, dtype=compute_dtype,
-            attn_mask=mask_prompt, attn_ctx=prompt_ctx, parity=parity)
+            attn_mask=mask_prompt, attn_ctx=prompt_ctx, parity=parity, tp=tp)
         last = logits_all[:, prompt_bucket - 1]                         # (W, V)
         return cache_w, last, torch.softmax(last.float(), dim=-1), pad
 
@@ -705,6 +726,8 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                     if bool(st.done):
                         break
             decode_window.windows += W
+            if not on_graphs:
+                decode_window.eager_windows += W
             decode_window.steps += i
             decode_window.readbacks += 1
             return st.result(prompt_probs)
@@ -712,11 +735,15 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
     def decode_window(params, prompt, prompt_len, xk, xv, base_mask,
                       initial_mask, temperature, seek, seek_end,
                       max_tokens: int, rng_seed) -> WindowResult:
+        on_card = prompt.device.type == "cuda"
+        if on_card and not graphs_ok and not decode_window.eager_windows:
+            log_info(f"window decoder: eager loop on the card, the tp group's backend "
+                     f"({torch.distributed.get_backend(tp)}) cannot be captured\n")
         return run(params, prompt, prompt_len, xk, xv, base_mask, initial_mask,
                    temperature, seek, seek_end, max_tokens, rng_seed,
-                   on_graphs=prompt.device.type == "cuda")
+                   on_graphs=on_card and graphs_ok)
 
     decode_window.eager = functools.partial(run, on_graphs=False)
     decode_window.windows = decode_window.readbacks = decode_window.steps = 0
-    decode_window.graphs = decode_window.capture_us = 0
+    decode_window.graphs = decode_window.capture_us = decode_window.eager_windows = 0
     return decode_window

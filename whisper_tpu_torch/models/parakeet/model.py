@@ -23,6 +23,13 @@ The products are torch's own (cuBLAS and cuDNN on the card): the JAX path
 reaches no Pallas kernel.  Callers on the card hold decoding/graphs.py
 DEVICE_LOCK and full_f32, so the f32 path stays IEEE f32 (cuDNN's
 convolutions would otherwise take TF32).
+
+Tensor parallelism (`tp=`, a process group; parallel/parakeet_sharding.py
+cuts the dense tree): both attentions run on the rank's H/tp heads and
+both feed-forward halves on its part of the hidden width; an all-reduce
+(sum) follows each row-parallel product (attention out, linear2).  The
+stem, the conv module, the predictor and the joint are replicated, so the
+encoder's output is the full one on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ...parallel.mesh import all_reduce_sum, group_size
 from .hparams import LOCAL_ATTN_THRESHOLD, LOCAL_ATTN_WINDOW, ParakeetHParams
 
 MASK_VALUE = -1e30
@@ -117,22 +125,24 @@ def _pos_embedding(window_size: int, max_rel: int, n_state: int, dtype,
 
 
 def _heads(x, w, n_head, dtype):
-    B, T, S = x.shape
-    return _pmm(x, w, dtype).reshape(B, T, n_head, S // n_head)
+    B, T, _ = x.shape
+    return _pmm(x, w, dtype).reshape(B, T, n_head, -1)
 
 
 def _rel_attention_global(x, layer, n_head: int, mask_1d, dtype=torch.float32,
-                          pos_emb=None):
+                          pos_emb=None, tp=None):
     """Full rel-pos MHA (src/parakeet.cpp:1808-1900).
 
     x: [B, T, S]; mask_1d: [B, T] additive key mask (0 valid / -1e30 pad);
-    pos_emb: [2T-1, S] (computed here when not given).
+    pos_emb: [2T-1, S] (computed here when not given).  n_head: the heads
+    of this call (the rank's own under tp, whose partial output projection
+    is summed over the group).
     """
     B, T, S = x.shape
-    d_head = S // n_head
-    scale = 1.0 / math.sqrt(d_head)
 
     q = _heads(x, layer["attn_q_w"], n_head, dtype)
+    d_head = q.shape[-1]
+    scale = 1.0 / math.sqrt(d_head)
     k = _heads(x, layer["attn_k_w"], n_head, dtype)
     v = _heads(x, layer["attn_v_w"], n_head, dtype)
 
@@ -155,12 +165,12 @@ def _rel_attention_global(x, layer, n_head: int, mask_1d, dtype=torch.float32,
 
     scores = (content + rel_shifted) * scale + mask_1d[:, None, None, :]
     probs = torch.softmax(scores, dim=-1)
-    out = (probs @ v.transpose(1, 2)).transpose(1, 2).reshape(B, T, S)
-    return _pmm(out, layer["attn_out_w"], dtype)
+    out = (probs @ v.transpose(1, 2)).transpose(1, 2).reshape(B, T, -1)
+    return all_reduce_sum(_pmm(out, layer["attn_out_w"], dtype), tp)
 
 
 def _rel_attention_local(x, layer, n_head: int, valid_1d, dtype=torch.float32,
-                         pos_emb=None):
+                         pos_emb=None, tp=None):
     """Banded local attention, window +-LOCAL_ATTN_WINDOW
     (src/parakeet.cpp:1694-1806).
 
@@ -168,10 +178,10 @@ def _rel_attention_local(x, layer, n_head: int, valid_1d, dtype=torch.float32,
     of C = 2W; each group's keys span [g*C - W, g*C + C + W) (C + 2W keys);
     the band (q's window) is extracted from the dense chunk scores by the
     flatten-skew, softmaxed over the window, and scattered back by the same
-    skew for the value matmul.
+    skew for the value matmul.  n_head and tp as `_rel_attention_global`.
     """
     B, T, S = x.shape
-    d_head = S // n_head
+    d_head = layer["pos_bias_u"].shape[-1]
     W = LOCAL_ATTN_WINDOW
     C = 2 * W                      # chunk (att_left + att_right)
     win = 2 * W + 1                # window_size
@@ -234,8 +244,8 @@ def _rel_attention_local(x, layer, n_head: int, valid_1d, dtype=torch.float32,
     pdense = pb.reshape(B, h, n_group, C, n_kv)
 
     out = pdense @ v_chunk.permute(0, 2, 1, 4, 3)                 # [B, h, g, C, d]
-    out = out.permute(0, 2, 3, 1, 4).reshape(B, Tp, S)[:, :T]
-    return _pmm(out, layer["attn_out_w"], dtype)
+    out = out.permute(0, 2, 3, 1, 4).reshape(B, Tp, h * d_head)[:, :T]
+    return all_reduce_sum(_pmm(out, layer["attn_out_w"], dtype), tp)
 
 
 # --------------------------------------------------------------------------
@@ -266,23 +276,24 @@ def _conv_module(x, layer, hp: ParakeetHParams, dtype=torch.float32):
     return _pmm(cur, layer["conv_pw2_w"], dtype)
 
 
-def _ffn(x, norm_w, norm_b, lin1, lin2, eps, dtype=torch.float32):
+def _ffn(x, norm_w, norm_b, lin1, lin2, eps, dtype=torch.float32, tp=None):
     cur = _ln(x, norm_w.to(dtype), norm_b.to(dtype), eps)
     cur = F.silu(_pmm(cur, lin1, dtype))
-    return _pmm(cur, lin2, dtype)
+    return all_reduce_sum(_pmm(cur, lin2, dtype), tp)
 
 
 def conformer_block(x, layer, hp: ParakeetHParams, mask_or_valid, local: bool,
-                    dtype=torch.float32, pos_emb=None):
+                    dtype=torch.float32, pos_emb=None, tp=None):
     fc = 0.5
     x = x + fc * _ffn(x, layer["norm_ff1_w"], layer["norm_ff1_b"],
-                      layer["ff1_lin1_w"], layer["ff1_lin2_w"], hp.eps, dtype)
+                      layer["ff1_lin1_w"], layer["ff1_lin2_w"], hp.eps, dtype, tp)
     cur = _ln(x, layer["norm_attn_w"].to(dtype), layer["norm_attn_b"].to(dtype), hp.eps)
     attend = _rel_attention_local if local else _rel_attention_global
-    x = x + attend(cur, layer, hp.n_audio_head, mask_or_valid, dtype, pos_emb)
+    x = x + attend(cur, layer, hp.n_audio_head // group_size(tp), mask_or_valid, dtype,
+                   pos_emb, tp)
     x = x + _conv_module(x, layer, hp, dtype)
     x = x + fc * _ffn(x, layer["norm_ff2_w"], layer["norm_ff2_b"],
-                      layer["ff2_lin1_w"], layer["ff2_lin2_w"], hp.eps, dtype)
+                      layer["ff2_lin1_w"], layer["ff2_lin2_w"], hp.eps, dtype, tp)
     return _ln(x, layer["norm_out_w"].to(dtype), layer["norm_out_b"].to(dtype), hp.eps)
 
 
@@ -293,13 +304,14 @@ def layer_params(layers: Dict[str, Any], il: int) -> Dict[str, Any]:
 
 
 def encode(params: Dict[str, Any], mel: torch.Tensor, n_len_org,
-           hp: ParakeetHParams, dtype=torch.float32) -> torch.Tensor:
+           hp: ParakeetHParams, dtype=torch.float32, tp=None) -> torch.Tensor:
     """Full encoder: mel (B, n_time, n_mels) -> (B, n_frames, n_state).
 
     n_len_org: each row's original (unpadded) mel frame count (an int for
     all rows, or a sequence of B); keys beyond ceil(n_len_org / subsampling)
     are masked (src/parakeet.cpp:2016-2042).  The 24 layers run as a Python
-    loop, as the JAX package's unrolled default.
+    loop, as the JAX package's unrolled default.  tp: `params` is this
+    rank's part (module docstring).
     """
     x = pre_encode(params["pre"], mel, hp, dtype)
     B, T, S = x.shape
@@ -319,7 +331,7 @@ def encode(params: Dict[str, Any], mel: torch.Tensor, n_len_org,
 
     for il in range(params["layers"]["norm_out_w"].shape[0]):
         x = conformer_block(x, layer_params(params["layers"], il), hp,
-                            mask_or_valid, local, dtype, pos_emb)
+                            mask_or_valid, local, dtype, pos_emb, tp)
     return x
 
 

@@ -24,6 +24,19 @@ enter).
 One deliberate difference from the JAX package: `decode_step` writes the new
 K/V column into the cache IN PLACE (the JAX functions are pure and return a
 new cache), which saves a cache copy per step.
+
+Tensor parallelism (`tp=`, a torch.distributed process group; None: one
+device): the parameters are this rank's part of the spec table
+(parallel/sharding.py `shard_params`), so every function runs on the
+rank's H/tp heads, and the collectives GSPMD inserts in the JAX package
+are written here: an all-reduce (sum) after each row-parallel product
+(encoder o and mlp1; decoder o, xo and mlp1), with the replicated bias and
+the residual added after it, and an all-reduce (max) of the q8 self-KV
+cache's per-row amax, which spans every head (`_quantize_rows`).  After
+the last reduce x is the same on every rank, and the token embedding is
+replicated, so every rank computes the full logits with no collective.
+Attention routes are chosen on the rank's own heads (`_enc_attn_route`):
+rank-local attention is the single-device function on H/tp heads.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import torch.nn.functional as F
 from ...ops import attention as flash
 from ...ops import decode_attn, enc_attn
 from ...ops.qmm import QWeight, QWeightT, embed_lookup, qmmt_auto, qmmt_fused_auto
+from ...parallel.mesh import all_reduce_max, all_reduce_sum, group_size
 from .hparams import WhisperHParams
 
 
@@ -204,6 +218,16 @@ def _mm_fused(x: torch.Tensor, w, dtype, *, ln=None, bias=None, res=None,
     return y
 
 
+def _row_parallel(h: torch.Tensor, w, bias, res: torch.Tensor, dtype, tp) -> torch.Tensor:
+    """h @ w + bias + res for a row-parallel projection: one fused call
+    without tp; with tp the rank's partial product summed over the group
+    first, then the replicated bias and the residual, once each (the dense
+    `_mm_fused`'s order: product, bias, residual)."""
+    if tp is None:
+        return _mm_fused(h, w, dtype, bias=bias, res=res)
+    return all_reduce_sum(_mm(h, w, dtype), tp) + bias + res
+
+
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
     """(..., T, n_state) -> (..., n_head, T, d_head)"""
     *lead, t, n_state = x.shape
@@ -284,15 +308,17 @@ def _enc_attn_route(dtype, t_pad: int, n_head: int, d_head: int) -> str:
 
 def _encoder_block(x: torch.Tensor, blk: Dict[str, torch.Tensor], n_head: int,
                    eps: float, dtype, true_len: Optional[int] = None,
-                   parity: bool = False) -> torch.Tensor:
+                   parity: bool = False, tp=None) -> torch.Tensor:
     """One pre-LN transformer block; rows true_len.. are junk padding kept
     in their own attention segment.  parity: the reference's non-flash
     attention, which casts K and V to f16 and so rounds Q and the softmax
     probabilities to f16 at its two products: the plain graph at dtype f16
-    (src/whisper.cpp:2170-2193), never a kernel."""
+    (src/whisper.cpp:2170-2193), never a kernel.  tp: n_head is the
+    rank's own head count, and the row-parallel products are summed over
+    the group before their biases."""
     h = layer_norm(x, blk["attn_ln_w"], blk["attn_ln_b"], eps)
-    n_state = x.shape[-1]
     qkv = _mm(h, blk["qkv_w"], dtype) + blk["qkv_b"]
+    n_state = qkv.shape[-1] // 3          # the rank's q (k, v) width
     t_pad = qkv.shape[-2]
     route = "parity" if parity else _enc_attn_route(dtype, t_pad, n_head,
                                                     n_state // n_head)
@@ -310,10 +336,10 @@ def _encoder_block(x: torch.Tensor, blk: Dict[str, torch.Tensor], n_head: int,
             out = attention(qh, kh, vh, m,
                             torch.float16 if route == "parity" else dtype)
         merged = _merge_heads(out)
-    x = x + _mm(merged, blk["o_w"], dtype) + blk["o_b"]
+    x = x + all_reduce_sum(_mm(merged, blk["o_w"], dtype), tp) + blk["o_b"]
     h = layer_norm(x, blk["mlp_ln_w"], blk["mlp_ln_b"], eps)
     h = _gelu(_mm(h, blk["mlp0_w"], dtype) + blk["mlp0_b"], parity)
-    return x + _mm(h, blk["mlp1_w"], dtype) + blk["mlp1_b"]
+    return x + all_reduce_sum(_mm(h, blk["mlp1_w"], dtype), tp) + blk["mlp1_b"]
 
 
 def _at(v, l: int):
@@ -328,7 +354,7 @@ def _layer(blocks: Dict[str, Any], l: int) -> Dict[str, Any]:
 
 def encode(params: Dict[str, Any], mel: torch.Tensor, hp: WhisperHParams,
            dtype=torch.bfloat16, pad_to: Optional[int] = None,
-           parity: bool = False) -> torch.Tensor:
+           parity: bool = False, tp=None) -> torch.Tensor:
     """mel (n_mels, 2*n_ctx) -> encoder embeddings (n_ctx, n_state).
 
     Padded residency: when the flash route is on (`use_flash`), the
@@ -337,21 +363,22 @@ def encode(params: Dict[str, Any], mel: torch.Tensor, hp: WhisperHParams,
     their own attention segment, so real rows are unaffected.  With flash
     off (-nfa) the stream stays unpadded, as in the JAX package, and so it
     does in the parity mode, which never takes a kernel.  `pad_to` forces a
-    padded length."""
+    padded length.  tp: `params` is this rank's part (module docstring); the
+    result is the full (n_ctx, n_state) on every rank."""
     enc = params["enc"]
     x = conv_stem(enc, mel, dtype, parity)
     n_ctx = x.shape[0]
     x = x + enc["pos_embd"][:n_ctx]
-    tp = pad_to
-    if tp is None and not parity and flash.use_flash(n_ctx, dtype):
-        tp = flash._round_up(max(n_ctx, 512), 512)
+    t_pad = pad_to
+    if t_pad is None and not parity and flash.use_flash(n_ctx, dtype):
+        t_pad = flash._round_up(max(n_ctx, 512), 512)
     true_len = None
-    if tp is not None and tp > n_ctx:
-        x = F.pad(x, (0, 0, 0, tp - n_ctx))
+    if t_pad is not None and t_pad > n_ctx:
+        x = F.pad(x, (0, 0, 0, t_pad - n_ctx))
         true_len = n_ctx
     for l in range(hp.n_audio_layer):
-        x = _encoder_block(x, _layer(enc["blocks"], l), hp.n_audio_head, hp.eps,
-                           dtype, true_len=true_len, parity=parity)
+        x = _encoder_block(x, _layer(enc["blocks"], l), hp.n_audio_head // group_size(tp),
+                           hp.eps, dtype, true_len=true_len, parity=parity, tp=tp)
     return layer_norm(x[:n_ctx], enc["ln_post_w"], enc["ln_post_b"], hp.eps)
 
 
@@ -364,10 +391,12 @@ class XK8(NamedTuple):
     scale: torch.Tensor
 
 
-def _quantize_rows(x: torch.Tensor):
-    """(..., S) -> (codes int8, scale (...) f32); per-row symmetric."""
+def _quantize_rows(x: torch.Tensor, tp=None):
+    """(..., S) -> (codes int8, scale (...) f32); per-row symmetric.  tp:
+    x holds this rank's columns of each row, and the row's amax is the max
+    over the group, so the codes and scales are the unsharded ones."""
     x32 = x.float()
-    scale = x32.abs().amax(-1) / 127.0
+    scale = all_reduce_max(x32.abs().amax(-1), tp) / 127.0
     inv = torch.where(scale > 0, 1.0 / torch.where(scale == 0, 1.0, scale), 0.0)
     codes = torch.clamp(torch.round(x32 * inv[..., None]), -127, 127).to(torch.int8)
     return codes, scale
@@ -375,20 +404,21 @@ def _quantize_rows(x: torch.Tensor):
 
 def compute_cross_kv(params: Dict[str, Any], enc_out: torch.Tensor,
                      hp: WhisperHParams, dtype=torch.bfloat16, itype: str = "f16",
-                     parity: bool = False):
+                     parity: bool = False, tp=None):
     """Cross-attention K/V for every decoder layer, (n_text_layer, n_head,
     n_audio_ctx, d_head): dense f32 (itype='f16') or XK8 planes ('q8').
 
     parity: K pre-scaled by d^-0.25 (the reference scales before its f16
     kv_cross store, src/whisper.cpp:2304-2314) and both planes stored as
-    f16, whatever `itype`."""
+    f16, whatever `itype`.  tp: this rank's H/tp heads; an XK8 plane's
+    scale is per (head, position), so it needs no collective."""
     blocks = params["dec"]["blocks"]
+    n_head = hp.n_text_head // group_size(tp)
     ks, vs = [], []
     for l in range(hp.n_text_layer):
-        ks.append(_split_heads(_mm(enc_out, _at(blocks["xk_w"], l), dtype),
-                               hp.n_text_head))
+        ks.append(_split_heads(_mm(enc_out, _at(blocks["xk_w"], l), dtype), n_head))
         vs.append(_split_heads(_mm(enc_out, _at(blocks["xv_w"], l), dtype)
-                               + blocks["xv_b"][l], hp.n_text_head))
+                               + blocks["xv_b"][l], n_head))
     xk, xv = torch.stack(ks), torch.stack(vs)
     if parity:
         d_head = hp.n_text_state // hp.n_text_head
@@ -461,13 +491,15 @@ class KVCache8(NamedTuple):
 
 
 def new_cache(hp: WhisperHParams, n_beam: int, dtype=torch.float32,
-              itype: str = "f16", device="cpu", n_cells: Optional[int] = None):
+              itype: str = "f16", device="cpu", n_cells: Optional[int] = None,
+              tp=None):
     """kv_self allocation; itype 'f16' (dense, `dtype` storage) or 'q8'.
     `n_cells` (default n_text_ctx): the natively batched window decoder
-    allocates prompt_bucket + n_max cells (decoding/device_loop.py)."""
-    h = hp.n_text_head
+    allocates prompt_bucket + n_max cells (decoding/device_loop.py).  tp:
+    this rank's H/tp heads (the q8 scales stay whole: they are per row)."""
+    h = hp.n_text_head // group_size(tp)
     c = n_cells or hp.n_text_ctx
-    shape = (hp.n_text_layer, n_beam, h, 2, c, hp.n_text_state // h)
+    shape = (hp.n_text_layer, n_beam, h, 2, c, hp.n_text_state // hp.n_text_head)
     if itype == "q8":
         return KVCache8(torch.zeros(shape, dtype=torch.int8, device=device),
                         torch.zeros((hp.n_text_layer, n_beam, 2, c),
@@ -498,7 +530,7 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
                 positions: torch.Tensor, kv_head: int, cache, xk, xv,
                 hp: WhisperHParams, dtype=torch.bfloat16, attn_mask=None,
                 attn_ctx: Optional[int] = None, xkv_group: int = 1,
-                parity: bool = False):
+                parity: bool = False, tp=None):
     """One batched decoder forward over all lanes (whisper_build_graph_decoder,
     src/whisper.cpp:2464-2842).
 
@@ -522,12 +554,15 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     (src/whisper.cpp:2549-2565), so self-attention runs at scale 1;
     cross-attention K arrives pre-scaled (compute_cross_kv) and takes the
     second d^-0.25 on its scores; GELU goes through the f16 table; a
-    QWGGML token embedding feeds the lookup and the logits head."""
+    QWGGML token embedding feeds the lookup and the logits head.
+
+    tp: `params`, the cache and xk/xv hold this rank's H/tp heads (module
+    docstring); the logits are the full ones on every rank."""
     dec = params["dec"]
     n_beam, n_tok = tokens.shape
-    n_head = hp.n_text_head
-    n_state = hp.n_text_state
-    d_head = n_state // n_head
+    d_head = hp.n_text_state // hp.n_text_head
+    n_head = hp.n_text_head // group_size(tp)
+    n_state = n_head * d_head                 # the rank's q (k, v) width
     n_ctx = cache.kv.shape[-2]
     eps = hp.eps
     device = tokens.device
@@ -585,7 +620,7 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
             kv2 = torch.stack((kv2[:, :, 0] * kq_scale, kv2[:, :, 1]), 2)
         qh = _split_heads(q, n_head)
         if is_q8:
-            codes, sc = _quantize_rows(kv2)                 # (B,T,2,S), (B,T,2)
+            codes, sc = _quantize_rows(kv2, tp)             # (B,T,2,S), (B,T,2)
             cache.kv[l].index_copy_(3, cells, to_col(codes))
             cache.scale[l].index_copy_(2, cells, sc.transpose(1, 2))
             if use_dattn:
@@ -605,17 +640,17 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
             kv_l = cache.kv[l]
             out = attention(qh, kv_l[:, :, 0, :A], kv_l[:, :, 1, :A], mask, dtype,
                             scale=1.0 if parity else None)
-        x = _mm_fused(_merge_heads(out), blk["o_w"], dtype, bias=blk["o_b"], res=x)
+        x = _row_parallel(_merge_heads(out), blk["o_w"], blk["o_b"], x, dtype, tp)
         q = _mm_fused(x, blk["xq_w"], dtype,
                       ln=(blk["xattn_ln_w"], blk["xattn_ln_b"]),
                       bias=blk["xq_b"], eps=eps)
         out = cross_attend(_split_heads(q, n_head), cxk, cxv, dtype, group=xkv_group,
                            scale=kq_scale if parity else None)
-        x = _mm_fused(_merge_heads(out), blk["xo_w"], dtype, bias=blk["xo_b"], res=x)
+        x = _row_parallel(_merge_heads(out), blk["xo_w"], blk["xo_b"], x, dtype, tp)
         h = _mm_fused(x, blk["mlp0_w"], dtype,
                       ln=(blk["mlp_ln_w"], blk["mlp_ln_b"]),
                       bias=blk["mlp0_b"], act="gelu", eps=eps, parity=parity)
-        x = _mm_fused(h, blk["mlp1_w"], dtype, bias=blk["mlp1_b"], res=x)
+        x = _row_parallel(h, blk["mlp1_w"], blk["mlp1_b"], x, dtype, tp)
 
     if isinstance(tok_embd, QWeight) and dec.get("tok_embd_t") is not None:
         # logits head on the transposed planes, final layer norm as prologue

@@ -33,7 +33,11 @@ Design notes:
   * precision on the card: OptContext runs every step's forward and
     backward inside decoding/graphs.py `full_f32` (IEEE f32 products, no
     TF32) under DEVICE_LOCK, so a step on the card computes what it
-    computes on the CPU up to the order of f32 sums.
+    computes on the CPU up to the order of f32 sums;
+  * data parallelism (`mesh=`, its "dp" axis): each rank runs its rows of
+    the batch (OptContext), and the loss's mean divides by the whole
+    batch's count of scored positions (summed over the axis, a constant to
+    autograd), so the summed loss and gradients are one process's.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ from ..models.whisper import model as M
 from ..models.whisper.hparams import WhisperHParams
 from ..models.whisper.load import WhisperModel
 from ..models.whisper.writer import write_model_file
-from .opt import OptContext, OptimizerParams
+from ..parallel.mesh import all_reduce_sum
+from .opt import OptContext, OptimizerParams, dp_group
 
 IGNORE_INDEX = -100
 
@@ -114,14 +119,17 @@ def _ctx_bucket(n_tok: int, n_ctx: int) -> int:
     return min(n_ctx, ((n_tok + 127) // 128) * 128)
 
 
-def masked_ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over positions whose label != IGNORE_INDEX."""
+def masked_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   dp=None) -> torch.Tensor:
+    """Mean CE over positions whose label != IGNORE_INDEX.  dp: a
+    data-parallel group; the rows are this rank's, and the mean divides by
+    the count over the group."""
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     tok_lp = torch.take_along_dim(logp, safe[..., None], dim=-1)[..., 0]
     return -torch.sum(torch.where(valid, tok_lp, 0.0)) / torch.clamp(
-        torch.sum(valid), min=1)
+        all_reduce_sum(torch.sum(valid), dp), min=1)
 
 
 def make_finetune_context(wm: WhisperModel,
@@ -143,13 +151,14 @@ def make_finetune_context(wm: WhisperModel,
     """
     hp = wm.hparams
     params = _map(lambda a: np.asarray(a, np.float32), wm.params)
+    dp = None if mesh is None else dp_group(mesh)
 
     def model_fn(p, batch):
         toks = batch["tokens"].long()
         inp = torch.clamp(toks[:, :-1], min=0)  # pad cells attend but don't score
         logits = teacher_forced_logits(p, batch["mel"], inp, hp, dtype=dtype,
                                        freeze_encoder=freeze_encoder)
-        return masked_ce_loss(logits, toks[:, 1:])
+        return masked_ce_loss(logits, toks[:, 1:], dp)
 
     trainable = (lambda path: "['enc']" not in path) if freeze_encoder else None
     return OptContext(model_fn, params, loss_type="sum", optimizer=optimizer,

@@ -34,8 +34,16 @@ computes in IEEE f32 (`full_f32`: no TF32), so it computes what it computes
 on the CPU up to the order of f32 sums.
 A frozen parameter has its gradient zeroed, as the JAX `_mask_grads` does;
 it still takes the update, so under wd > 0 it decays by 1 - alpha*wd every
-step.  Data parallelism over a mesh (`mesh=`) is not ported: it is part of
-the scale-out work (ROADMAP Queue 1 item 12).
+step.
+
+Data parallelism (`mesh=`, a DeviceMesh from parallel/mesh.py, over its
+`batch_axis`): every rank holds all the parameters and takes its own
+consecutive rows of each batch leaf's leading axis (a batch whose rows do
+not split evenly raises).  The loss is normalised by the global counts,
+each rank's gradients are summed over the axis before they are
+accumulated, and the loss, `ncorrect` and the predictions are reduced or
+gathered, so `step()`, `eval()` and a Result give what one process gives
+on the whole batch: what GSPMD gives the JAX `OptContext(mesh=)`.
 """
 
 from __future__ import annotations
@@ -48,8 +56,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..decoding.graphs import DEVICE_LOCK, full_f32
+from ..parallel.mesh import all_reduce_sum, axis_group, group_rank, group_size
 
 # loss types — ggml_opt_loss_type (ggml-opt.h:31-36)
 LOSS_MEAN = "mean"
@@ -198,11 +208,24 @@ class Result:
                 if self.preds else np.zeros((0,), np.int32))
 
 
+def dp_group(mesh, batch_axis: str = "dp"):
+    """The process group of `mesh`'s data-parallel axis; a ValueError that
+    names the cause when torch.distributed has no default group."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            "data parallelism over a mesh needs an initialised torch.distributed "
+            "default process group (whisper_tpu_torch.parallel.multihost."
+            "init_distributed) and a DeviceMesh (parallel.mesh.make_mesh)")
+    return axis_group(mesh, batch_axis)
+
+
 def _loss_and_stats(outputs: torch.Tensor, labels: Optional[torch.Tensor],
-                    loss_type: str, opt_period: int):
+                    loss_type: str, opt_period: int, n_shards: int = 1):
     """Loss exactly as ggml-opt builds it (ggml-opt.cpp:385-445), plus
-    argmax predictions / ncorrect when labels are classifications."""
-    n_out = outputs.numel()
+    argmax predictions / ncorrect when labels are classifications.
+    `outputs` is one of `n_shards` equal row shards of the batch: the
+    counts that normalise the loss are the whole batch's."""
+    n_out = outputs.numel() * n_shards
     if loss_type == LOSS_MEAN:
         loss = torch.sum(outputs) / (opt_period * n_out)
     elif loss_type == LOSS_SUM:
@@ -269,8 +292,9 @@ class OptContext:
 
     `trainable(path) -> bool` freezes parameters (grads zeroed — the
     analogue of not flagging a tensor GGML_TENSOR_FLAG_PARAM; the update
-    still applies, as in the JAX package).  `mesh` is not ported (ROADMAP
-    Queue 1 item 12, scale-out) and raises.
+    still applies, as in the JAX package).  `mesh`/`batch_axis`: data
+    parallelism over the mesh's axis (module docstring); every rank of it
+    calls step() and eval() with the same whole batch.
     """
 
     def __init__(self, model_fn: Callable[[Dict[str, Any], Any], torch.Tensor],
@@ -281,11 +305,9 @@ class OptContext:
                  get_opt_pars: Optional[Callable[[int], OptimizerParams]] = None,
                  trainable: Optional[Callable[[str], bool]] = None,
                  mesh=None,
-                 device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data parallelism over a mesh is not ported to whisper_tpu_torch "
-                "(ROADMAP Queue 1 item 12, scale-out)")
+                 device=None,
+                 batch_axis: str = "dp"):
+        self.dp = None if mesh is None else dp_group(mesh, batch_axis)
         if loss_type not in _LOSS_TYPES:
             raise ValueError(f"unknown loss type {loss_type!r}")
         if optimizer not in ("adamw", "sgd"):
@@ -319,7 +341,8 @@ class OptContext:
 
     # -- device placement ---------------------------------------------------
     def _to_device(self, batch):
-        """Batches may be arrays or trees of arrays (dict inputs)."""
+        """Batches may be arrays or trees of arrays (dict inputs); under a
+        mesh each leaf keeps this rank's rows of its leading axis."""
         if batch is None:
             return None
         if isinstance(batch, dict):
@@ -327,6 +350,13 @@ class OptContext:
         if isinstance(batch, (list, tuple)):
             return type(batch)(self._to_device(v) for v in batch)
         t = batch if torch.is_tensor(batch) else torch.as_tensor(np.asarray(batch))
+        n = group_size(self.dp)
+        if n > 1:
+            rows = t.shape[0]
+            if rows % n:
+                raise ValueError(f"a batch of {rows} rows does not split evenly "
+                                 f"over the {n} data-parallel ranks")
+            t = t[group_rank(self.dp) * (rows // n):][:rows // n]
         return t.to(self.device)
 
     @staticmethod
@@ -344,7 +374,22 @@ class OptContext:
 
     def _loss(self, inputs, labels):
         outputs = self.model_fn(self.params, inputs)
-        return _loss_and_stats(outputs, labels, self.loss_type, self.opt_period)
+        return _loss_and_stats(outputs, labels, self.loss_type, self.opt_period,
+                               group_size(self.dp))
+
+    def _global(self, loss, pred, ncorrect):
+        """The whole batch's loss, predictions and ncorrect from this
+        rank's (sums and a gather over the data-parallel axis)."""
+        if self.dp is None:
+            return loss, pred, ncorrect
+        loss = all_reduce_sum(loss.detach().clone(), self.dp)
+        if ncorrect is not None:
+            ncorrect = all_reduce_sum(ncorrect.clone(), self.dp)
+        if pred is not None:
+            parts = [torch.empty_like(pred) for _ in range(group_size(self.dp))]
+            dist.all_gather(parts, pred.contiguous(), group=self.dp)
+            pred = torch.cat(parts)
+        return loss, pred, ncorrect
 
     def _hyper(self) -> Tuple[torch.Tensor, ...]:
         """[alpha, beta1, beta2, eps, wd, b1h, b2h] as f32 scalars, the
@@ -384,6 +429,7 @@ class OptContext:
         """Forward + backward on one physical batch; applies the optimizer on
         every `opt_period`-th call (ggml_opt_eval with backward graphs)."""
         apply_update = (self.opt_i + 1) % self.opt_period == 0
+        ndata = self._batch_ndata(inputs)
         with self._device_section():
             inputs = self._to_device(inputs)
             labels = self._to_device(labels)
@@ -392,28 +438,30 @@ class OptContext:
             with torch.no_grad():
                 for i, g in enumerate(grads):
                     if g is not None and self._trainable[i]:
-                        self._acc[i] += g
+                        self._acc[i] += all_reduce_sum(g, self.dp)
             if apply_update:
                 self._update()
+            loss, pred, ncorrect = self._global(loss.detach(), pred, ncorrect)
         self.opt_i = (self.opt_i + 1) % self.opt_period
         if apply_update:
             self.iter += 1
-        return self._record(loss.detach(), pred, ncorrect, inputs, result)
+        return self._record(loss, pred, ncorrect, ndata, result)
 
     def eval(self, inputs, labels=None, result: Optional[Result] = None) -> float:
         """Forward only (ggml_opt_eval without backward)."""
+        ndata = self._batch_ndata(inputs)
         with self._device_section(), torch.no_grad():
             inputs = self._to_device(inputs)
             labels = self._to_device(labels)
-            loss, pred, ncorrect = self._loss(inputs, labels)
-        return self._record(loss, pred, ncorrect, inputs, result)
+            loss, pred, ncorrect = self._global(*self._loss(inputs, labels))
+        return self._record(loss, pred, ncorrect, ndata, result)
 
-    def _record(self, loss, pred, ncorrect, inputs, result) -> float:
+    def _record(self, loss, pred, ncorrect, ndata: int, result) -> float:
         loss = float(loss)
         if result is not None:
             per_dp = self.loss_type != LOSS_SUM
             result._accumulate(
-                loss, self._batch_ndata(inputs),
+                loss, ndata,
                 None if ncorrect is None else int(ncorrect),
                 None if pred is None else pred.cpu().numpy(),
                 per_dp, self.opt_period)
