@@ -20,8 +20,12 @@ Phases (any failure exits non-zero; nothing is caught):
      with default parameters (kv cache q8, then f16; five timed runs, the
      window loop's CUDA graphs' flag reads, captures and ms per token),
      one window through the window loop's graphs against its eager loop,
-     one 30 s window of the q8 context under torch.profiler on the graphs
-     and on the eager loop (device busy share, device time by kernel), its
+     decode_step_bucketed against the full-context step on the q8
+     context's packed planes, q8 and f16 caches, from the prompt pass to
+     the last cell (every attention bucket; K1 and K3 launched, K3 at each
+     bucket's context), `qmm_auto` on the card against the CPU, one 30 s
+     window of the q8 context under torch.profiler on the graphs and on
+     the eager loop (device busy share, device time by kernel), its
      window-loop time at 1, 2, 4, 8 and 16 steps per read of the done
      flag, one beam-search window of the f16 context under the profiler,
      one 30 s encode on the flash route (WTPU_ENC_ATTN=flash) against the
@@ -53,7 +57,8 @@ Phases (any failure exits non-zero; nothing is caught):
      runs after a warm-up, mel/encode/decode times, the loop's steps,
      replays and flag reads, tokens, peak memory, no K1-K6 launch); the
      encode packed against dense; the loop's graphs against its eager
-     step bit for bit; `full_batch` of 4 clips against the same 4 through
+     step bit for bit; the chunked loop (chunk 16) against the frame loop,
+     both on graphs; `full_batch` of 4 clips against the same 4 through
      `full()`; one 700 s clip on the local-attention path; the port's
      parakeet-cli with -otxt and with --batch; a small decisive Parakeet
      on the card against the CPU;
@@ -113,8 +118,12 @@ Phases (any failure exits non-zero; nothing is caught):
      file, in one 1-rank launch and one 2-rank launch (parallel/launch.py):
      a. one rank over NCCL on a 1 x 1 mesh: the dense bf16 turbo file's
         encode (K4), cross-K/V q8, a prompt pass and 3 steps, and a greedy
-        window through the window decoder's CUDA graphs (K3, the NCCL
-        all-reduces captured), bit for bit equal to tp=None;
+        window through the window decoder's CUDA graphs (K3), bit for bit
+        equal to tp=None, with no all-reduce launched (a one-rank group has
+        no collective), the step's ms beside tp=None's; the collective
+        audit's decode step (parallel/collective_audit.py) at tp = 1, float
+        and q8 caches, reading no collective; the scaling bench's 1x1 line
+        (parallel/scaling_bench.py, synthetic dense large-v3-turbo);
      b. two ranks sharing the card over gloo (NCCL refuses two ranks on one
         device), Whisper tp=2 at full turbo width, dense bf16: encode,
         cross-K/V f16 and q8, the prompt pass and 3 steps with f16 and q8
@@ -406,6 +415,12 @@ def check_qmmt(dev, Q, QM):
     return agg
 
 
+# K3 against its plain version: 2e-2 of the largest |output| (bf16 products
+# of int8 codes, f32 sums in another order); phase 4's bucketed step holds
+# its logits to the same share of the largest |logit|
+K3_REL_TOL = 2e-2
+
+
 def check_self_attend_q8(dev, DA):
     """K3 at turbo widths: G = 1 (a decode step) and G = 4 (a prompt
     bucket) for every attention bucket A with one row, B = 5 rows (a beam
@@ -454,7 +469,7 @@ def check_self_attend_q8(dev, DA):
         ref = DA.self_attend_q8_plain(kv, scale, q, mask, l=L - 1, attn_ctx=A)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        tol = 2e-2 * ref.abs().max().item()
+        tol = K3_REL_TOL * ref.abs().max().item()
         tag = f"B={B},G={G},A={A},C={C}" + {"causal": "", "pad": ",pad rows masked",
                                                "prompt": ",native prompt pass"}[rows]
         log(f"  check self_attend_q8[{tag}]: max_abs_err={err:.3e} tol={tol:.3e} "
@@ -917,6 +932,116 @@ def run_main_path(W, counters, path: str, kv_itype: str, pcm: np.ndarray,
     assert logits.shape == (1, ctx.hp.n_vocab) and np.isfinite(logits).all()
     return ctx, segs, launches
 
+
+def check_bucketed(M, QM, DA, G, ctx, pcm: np.ndarray) -> dict:
+    """decode_step_bucketed against the full-context decode_step on the
+    turbo file's packed planes (K1), with the q8 self-KV cache (K3) and the
+    f16 one: a prompt pass, then greedy steps fed the full step's tokens up
+    to the last cell, so the occupancy passes through every attention
+    bucket (128, 256, 384, 448).  Each step's argmax equal and its logits
+    within K3_REL_TOL of the largest |logit| (a bucket changes K3's
+    reduction: bit-equality is not asked); the contexts K3 was launched at
+    and the K1 and K3 launches of the bucketed steps."""
+    hp, dev, v = ctx.hp, ctx.device, ctx.vocab
+    bf16 = torch.bfloat16
+    ctx.pcm_to_mel(pcm)
+    ctx.encode_window(0)
+    xk, xv = ctx.xk, ctx.xv
+    prompt = [v.token_sot, v.lang_token(0), v.token_transcribe]
+    counted = (QM.qmmt_fused, DA.self_attend_q8)
+    ctxs = []
+
+    class Spy:
+        """The model's view of ops/decode_attn.py, recording the context of
+        each K3 call (the wrapper itself stays in place: it counts its
+        launches on its own function object)."""
+
+        def __getattr__(self, name):
+            return getattr(DA, name)
+
+        @staticmethod
+        def self_attend_q8(*a, **k):
+            ctxs.append(k["attn_ctx"])
+            return DA.self_attend_q8(*a, **k)
+
+    out = {}
+    for itype in ("q8", "f16"):
+        ctxs.clear()
+        caches = [M.new_cache(hp, 1, bf16, itype=itype, device=dev) for _ in range(2)]
+        tok = torch.tensor([prompt], device=dev)
+        pos = torch.arange(len(prompt), device=dev)[None]
+        errs, scales, agree = [], [], []
+        launches = dict.fromkeys((fn.__name__ for fn in counted), 0)
+        t_b = t_f = 0.0
+        head = 0
+        with G.DEVICE_LOCK:
+            M.decode_attn = Spy()
+            try:
+                while head + tok.shape[1] <= hp.n_text_ctx:
+                    before = [fn.launches for fn in counted]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lb, caches[0] = M.decode_step_bucketed(ctx.params, tok, pos, head,
+                                                           caches[0], xk, xv, hp, dtype=bf16)
+                    torch.cuda.synchronize()
+                    t_b += time.perf_counter() - t0
+                    for fn, n0 in zip(counted, before):
+                        launches[fn.__name__] += fn.launches - n0
+                    t0 = time.perf_counter()
+                    lf, caches[1] = M.decode_step(ctx.params, tok, pos, head, caches[1], xk,
+                                                  xv, hp, dtype=bf16)
+                    torch.cuda.synchronize()
+                    t_f += time.perf_counter() - t0
+                    lb, lf = lb[:, -1], lf[:, -1]
+                    errs.append((lb - lf).abs().max())
+                    scales.append(lf.abs().max())
+                    agree.append((lb.argmax(-1) == lf.argmax(-1)).all())
+                    head += tok.shape[1]
+                    tok = lf.argmax(-1, keepdim=True)
+                    pos = torch.full((1, 1), min(head, hp.n_text_ctx - 1), device=dev)
+            finally:
+                M.decode_attn = DA
+        err = torch.stack(errs).float().cpu()
+        scale = torch.stack(scales).float().cpu()
+        rel = float((err / scale).max())
+        same = bool(torch.stack(agree).all())
+        n = len(errs)
+        seen = sorted(set(ctxs))
+        log(f"  bucketed step [{itype}] vs full context: steps={n} (prompt pass + {n - 1}, "
+            f"last occupancy {head}) argmax equal={same} max_rel_err={rel:.3e} "
+            f"(tol {K3_REL_TOL:.0e} of max |logit|) max_abs_err={float(err.max()):.3e} "
+            f"K3 attn_ctx={seen} launches={json.dumps(launches)} host_ms_per_step "
+            f"bucketed={1e3 * t_b / n:.3f} full={1e3 * t_f / n:.3f}")
+        assert same and math.isfinite(rel) and rel <= K3_REL_TOL
+        assert launches["qmmt_fused"] > 0
+        if itype == "q8":
+            assert launches["self_attend_q8"] > 0 and seen == list(M.attn_ctx_buckets(448))
+        else:
+            assert launches["self_attend_q8"] == 0
+        out[itype] = {"launches": launches, "rel": rel}
+    return out
+
+
+def check_qmm_auto(QM, dev) -> None:
+    """`qmm_auto` (the product over file-orientation planes: `_mm` on a
+    QWeight, the logits head without its transposed planes; plain tensor
+    code) on the card against the CPU: turbo's mlp0 planes with affine
+    f16-derived scales and mins, 3 rows; both round W to bf16 in two steps
+    and sum in f32, so only the order of the sums differs: within 1e-4 of
+    max |y| (cuBLAS may split the 1280 products' sum, where the CPU test
+    holds the CPU to JAX at 1e-5)."""
+    g = torch.Generator().manual_seed(5)
+    R, K = 5120, 1280
+    qw = QM.QWeight(torch.randint(0, 32, (R, K), generator=g, dtype=torch.int8),
+                    (0.001 + 0.02 * torch.rand((R, K // 32), generator=g)).half().float(),
+                    (-0.3 * torch.rand((R, K // 32), generator=g)).half().float())
+    x = torch.randn((3, K), generator=g)
+    ref = QM.qmm_auto(x, qw)
+    y = QM.qmm_auto(x.to(dev), QM.QWeight(*(a.to(dev) for a in qw))).cpu()
+    err, scale = float((y - ref).abs().max()), float(ref.abs().max())
+    log(f"  qmm_auto card vs CPU (R={R}, K={K}, T=3, bf16, affine): max_abs_err={err:.3e} "
+        f"tol={1e-4 * scale:.3e}")
+    assert math.isfinite(err) and err <= 1e-4 * scale
 
 class _Eager:
     """A window decoder with its eager loop in place of its graphs."""
@@ -2007,6 +2132,124 @@ def parakeet_graphs_vs_eager(ctx) -> None:
     assert same and steps[False] == steps[True]
 
 
+# the chunked TDT loop against the frame loop: p and plog as the CPU test
+# holds them (tests/test_parakeet.py:258-270), the joint's encoder half
+# being one batched product over every frame
+TDT_CHUNK = 16
+TDT_CHUNK_ATOL = 1e-4
+TDT_BIAS = 60.0          # a crafted joint output bias that wins every argmax
+TDT_BLANK_LADDER = (0.0, 0.25, 0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0, 5.0, 6.0, 8.0, 16.0)
+TDT_MIN_BLANK_RUNS = 4
+
+
+def _tdt_compare(a, b):
+    """Two TdtLoop.run results of one row: (tokens, integer fields equal,
+    final h/c equal, p/plog max abs error)."""
+    k = int(a[6][0])
+    ints = int(b[6][0]) == k and all(np.array_equal(x[:, :k], y[:, :k])
+                                     for x, y in zip(a[:4], b[:4]))
+    state = torch.equal(a[7], b[7]) and torch.equal(a[8], b[8])
+    err = max(float(np.abs(x[:, :k] - y[:, :k]).max(initial=0.0)) for x, y in zip(a[4:6], b[4:6]))
+    return k, ints, state, err
+
+
+def _tdt_both(loop, enc, n, z, hp) -> tuple:
+    """chunk = 1 and chunk = TDT_CHUNK on `loop`'s graphs (after one run
+    each that captures its graph): the results, the steps and the ms of
+    each."""
+    from whisper_tpu_torch.models.parakeet.decode import max_out_for
+
+    out, ms, steps = {}, {}, {}
+    for chunk in (1, TDT_CHUNK):
+        loop.run(enc, [n], z, z, [max_out_for(n, hp)], chunk=chunk)
+        s0 = loop.steps
+        t0 = time.perf_counter()
+        out[chunk] = loop.run(enc, [n], z, z, [max_out_for(n, hp)], chunk=chunk)
+        ms[chunk] = 1e3 * (time.perf_counter() - t0)
+        steps[chunk] = loop.steps - s0
+    return out, steps, ms
+
+
+def _blank_runs(res) -> int:
+    """The emissions of a result that come after at least one blank frame
+    (the frames between them and the previous emission's end)."""
+    k = int(res[6][0])
+    frame, dval = res[1][0, :k], res[3][0, :k]
+    ends = np.concatenate([[0], frame[:-1] + np.maximum(dval[:-1], 1)])
+    return int((frame > ends).sum()) if k else 0
+
+
+def parakeet_chunked_vs_frame_loop(ctx) -> None:
+    """The TDT loop on the 40 s clip's frames with chunk = TDT_CHUNK against
+    chunk = 1, both on their CUDA graphs: tokens, frames, durations and the
+    final LSTM state equal, p and plog within TDT_CHUNK_ATOL; the steps and
+    wall of each.  The clip emits at every step, so the chunk's walk
+    through blank frames runs on crafted joint output biases (as
+    tests/test_torch_parakeet_chunked.py's), on a copy of the loop's
+    weights at full width: (a) a token of duration 0 on every frame (the
+    forced advance); (b) blanks of duration 2 on every frame (each chunk's
+    walk steps past its last frame); (c) the blank's bias raised along
+    TDT_BLANK_LADDER until the frame loop emits after blank runs (the walk
+    stops on an emission inside a chunk).  Where blanks occur, chunk
+    TDT_CHUNK must take fewer steps than chunk 1."""
+    from whisper_tpu_torch.models.parakeet.decode import TdtLoop, max_out_for
+
+    hp, base = ctx.hp, ctx.decoder.loop
+    enc = ctx._encode(ctx.mel[None], ctx.n_len_org)
+    n = -(-ctx.n_len_org // hp.subsampling_factor)
+    z = torch.zeros((1, hp.n_pred_layers, hp.n_pred_dim), device=enc.device)
+    out, steps, ms = _tdt_both(base, enc, n, z, hp)
+    k, ints, state, err = _tdt_compare(out[1], out[TDT_CHUNK])
+    log(f"  tdt loop chunk={TDT_CHUNK} vs chunk=1 on graphs: tokens={k} tokens, frames, "
+        f"durations equal={ints} h/c equal={state} p/plog max_abs_err={err:.3e} "
+        f"(tol {TDT_CHUNK_ATOL:.0e}) steps chunk1={steps[1]} chunk{TDT_CHUNK}="
+        f"{steps[TDT_CHUNK]} ms chunk1={ms[1]:.3f} chunk{TDT_CHUNK}={ms[TDT_CHUNK]:.3f}")
+    assert k > 0 and ints and state and err <= TDT_CHUNK_ATOL
+
+    # the crafted biases: one loop over a copy of the joint's output bias,
+    # rewritten in place between cases (its graphs read it where it lies)
+    joint = dict(base.params["joint"])
+    orig = joint["net_b"]
+    net_b = joint["net_b"] = orig.clone()
+    loop = TdtLoop(dict(base.params, joint=joint), hp, base.dtype)
+    nv, blank = hp.blank_id + 1, hp.blank_id
+
+    def set_bias(bias: dict) -> None:
+        net_b.copy_(orig)
+        for i, v in bias.items():
+            net_b[i] = v
+
+    # (c): of the ladder's blank biases, the one whose frame loop has the
+    # most of both emissions and emissions after blank runs
+    ladder = {}
+    for b in TDT_BLANK_LADDER:
+        set_bias({blank: float(orig[blank]) + b})
+        one = loop.run(enc, [n], z, z, [max_out_for(n, hp)])
+        ladder[b] = (int(one[6][0]), _blank_runs(one))
+    best = max((min(v), b) for b, v in ladder.items())
+    log(f"  tdt loop blank ladder (bias: tokens, emissions after blank runs) {ladder}: "
+        f"+{best[1]:g} (at least {TDT_MIN_BLANK_RUNS} of both)")
+    assert best[0] >= TDT_MIN_BLANK_RUNS, best
+    cases = [("a forced", {5: TDT_BIAS, nv: TDT_BIAS}),
+             ("b blanks", {blank: TDT_BIAS, nv + 2: TDT_BIAS}),
+             (f"c blank+{best[1]:g}", {blank: float(orig[blank]) + best[1]})]
+    for name, bias in cases:
+        set_bias(bias)
+        out, steps, ms = _tdt_both(loop, enc, n, z, hp)
+        k, ints, state, err = _tdt_compare(out[1], out[TDT_CHUNK])
+        runs = _blank_runs(out[1])
+        log(f"  tdt loop {name}: tokens={k} emissions after blank runs={runs} tokens, "
+            f"frames, durations equal={ints} h/c equal={state} p/plog max_abs_err={err:.3e} "
+            f"steps chunk1={steps[1]} chunk{TDT_CHUNK}={steps[TDT_CHUNK]} ms chunk1="
+            f"{ms[1]:.3f} chunk{TDT_CHUNK}={ms[TDT_CHUNK]:.3f}")
+        assert ints and state and err <= TDT_CHUNK_ATOL, name
+        if name.startswith("a"):
+            assert k > 0 and (out[1][0][0, :k] == 5).all() and (out[1][3][0, :k] == 0).all()
+        else:
+            assert k == 0 if name.startswith("b") else runs >= TDT_MIN_BLANK_RUNS, name
+            assert steps[TDT_CHUNK] < steps[1], (name, steps)
+
+
 def parakeet_batch_vs_sequential(ctx, clips) -> None:
     """full_batch on the clips against the same clips one by one through
     full() on a fork of the context with exact_shapes=False (the same padded
@@ -2153,6 +2396,7 @@ def check_parakeet(counters, tmp: str, t_start: float) -> None:
     parakeet_full_runs(ctx, counters, pcm)
     parakeet_packed_vs_dense(ctx, model)
     parakeet_graphs_vs_eager(ctx)
+    parakeet_chunked_vs_frame_loop(ctx)
     clips = [seeded_audio(PARAKEET_CLIP_S, seed=10 + i) for i in range(4)]
     parakeet_batch_vs_sequential(ctx, clips)
     parakeet_long(ctx)
@@ -2305,21 +2549,27 @@ def parity_grammar_card_matches_cpu(tmp: str, counters) -> None:
         log(f"  {tag} card == cpu: {len(a)} segments and their tokens identical")
 
 
-def check_parity_grammar(W, M, TC, counters, wav: str, pcm: np.ndarray, tmp: str) -> dict:
-    """Phase 9 on a q5_0 turbo file cut to TURBO_CUT_ENC_LAYERS of its 32
-    encoder layers (full widths, vocabulary and decoder; seed 0): each of
-    the phase's five loads takes a few seconds where the whole file's took
-    ~26 s, which made room for phase 13.  Returns the grammar CLI's
-    launches (q8)."""
+def write_turbo_cut(path: str) -> None:
+    """The q5_0 turbo file cut to TURBO_CUT_ENC_LAYERS of its 32 encoder
+    layers (full widths, vocabulary and decoder; seed 0) that phases 6, 7
+    and 9-12 take: each of their loads takes a few seconds where the whole
+    file's takes ~20-35 s, which keeps the smoke inside its time limit on a
+    slow host."""
     from whisper_tpu_torch.models.whisper.hparams import LARGE_V3_TURBO, WhisperHParams
     from whisper_tpu_torch.utils.synth import write_synth_model
 
-    t_phase = time.perf_counter()
-    path = os.path.join(tmp, "turbo-4enc-q5_0.bin")
+    t0 = time.perf_counter()
     write_synth_model(path, WhisperHParams(**{**LARGE_V3_TURBO.__dict__,
                                               "n_audio_layer": TURBO_CUT_ENC_LAYERS}),
                       seed=0, qtype="q5_0", decisive=True)
-    log(f"  turbo {TURBO_CUT_ENC_LAYERS} enc layers q5_0 synth_s={time.perf_counter() - t_phase:.1f}")
+    log(f"  turbo {TURBO_CUT_ENC_LAYERS} enc layers q5_0 synth_s={time.perf_counter() - t0:.1f}")
+
+
+def check_parity_grammar(W, M, TC, counters, path: str, wav: str, pcm: np.ndarray,
+                         tmp: str) -> dict:
+    """Phase 9 on the cut turbo file (`write_turbo_cut`).  Returns the
+    grammar CLI's launches (q8)."""
+    t_phase = time.perf_counter()
     ctx, _ = parity_runs(W, M, counters, path, pcm)
     graph_matches_eager(ctx, counters, "greedy", seeks=(0,))
     del ctx
@@ -3188,6 +3438,8 @@ def check_abi_and_training(W, counters, path: str, pcm: np.ndarray, tmp: str,
 # phase 12: scale-out on torch.distributed
 # ---------------------------------------------------------------------------
 
+# phase 12a's timed window calls on the 1 x 1 mesh and on tp=None, in turn
+WINDOW_REPEATS = 5
 # the wall times of phase 12's ranks are those of ranks that share ONE card
 # (NCCL refuses two ranks on one device): no scaling figure comes from them
 SHARED = "two ranks sharing one H100, gloo through the host"
@@ -3282,18 +3534,72 @@ def _q8_against(codes, scale, codes_ref, scale_ref) -> dict:
             "codes_turned": int((d > 0).sum())}
 
 
+NCCL_GRAPH_REPLAYS = 4
+
+
+def _nccl_graph_all_reduce() -> dict:
+    """`dist.all_reduce` (sum and max) on the one-rank NCCL world group,
+    captured in a CUDA graph between elementwise ops and replayed on fresh
+    inputs: the capture path the window decoder's graphs take at tp > 1 on
+    several cards, which a one-rank tp group no longer launches.  Each
+    replay against the same ops without the collective (one rank's sum and
+    max are its input), bit for bit; two calls at capture, none at replay."""
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.parallel import collective_audit as CA
+
+    world = dist.group.WORLD
+    assert dist.get_backend(world) == "nccl" and dist.get_world_size(world) == 1
+    g = torch.Generator(device="cuda").manual_seed(0)
+    src = torch.zeros((8, 1, 1280), device="cuda")    # a row-parallel product of 8 rows
+    s, m = torch.empty_like(src), torch.empty_like(src)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # NCCL sets up its communicator before capture
+        dist.all_reduce(src, group=world)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with CA.recorded_all_reduces() as calls:
+        with torch.cuda.graph(graph):
+            s.copy_(src)
+            dist.all_reduce(s, op=dist.ReduceOp.SUM, group=world)
+            s.mul_(3.0)
+            m.copy_(src)
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=world)
+            m.add_(1.0)
+        n_capture = len(calls)
+        equal = []
+        for _ in range(NCCL_GRAPH_REPLAYS):
+            src.normal_(generator=g)
+            graph.replay()
+            torch.cuda.synchronize()
+            equal.append(torch.equal(s, src * 3.0) and torch.equal(m, src + 1.0))
+        n_replay = len(calls) - n_capture
+    _rank_log(f"a. NCCL all-reduce (sum, max) on the one-rank world group captured in a "
+              f"CUDA graph: calls at capture={calls[:n_capture]} at {NCCL_GRAPH_REPLAYS} "
+              f"replays={n_replay}; each replay bit-equal={equal}")
+    assert all(equal) and n_capture == 2 and n_replay == 0
+    return {"calls_at_capture": n_capture, "replays": NCCL_GRAPH_REPLAYS, "equal": all(equal)}
+
+
 def scale_out_nccl(path: str, pcm: np.ndarray) -> dict:
     """Phase 12a, one rank over NCCL on a 1 x 1 mesh: the dense bf16 turbo
     file's encode (K4), cross-K/V q8 and the window decoder through its CUDA
-    graphs (K3, with the NCCL all-reduces captured) against tp=None, bit for
-    bit."""
+    graphs (K3) against tp=None, bit for bit, with no all-reduce launched (a
+    one-rank group has no collective); NCCL all-reduces captured in a CUDA
+    graph and replayed on the one-rank world group (the window graphs' path
+    at tp > 1 on several cards); the collective audit's step at tp = 1
+    (none) and the scaling bench's 1x1 line."""
     import torch.distributed as dist
 
     from whisper_tpu_torch.decoding import device_loop as DL
     from whisper_tpu_torch.decoding import graphs as G
     from whisper_tpu_torch.models.whisper import model as M
     from whisper_tpu_torch.models.whisper.load import load_model
+    from whisper_tpu_torch.parallel import collective_audit as CA
     from whisper_tpu_torch.parallel import mesh as PM
+    from whisper_tpu_torch.parallel import scaling_bench as SB
     from whisper_tpu_torch.parallel import sharding as PS
     from whisper_tpu_torch.runtime.context import WhisperContext
 
@@ -3309,7 +3615,7 @@ def scale_out_nccl(path: str, pcm: np.ndarray) -> dict:
     _rank_log(f"a. nccl 1x1: load_s={time.perf_counter() - t0:.1f} "
               f"backend={dist.get_backend(tp)} mesh={tuple(mesh.shape)}")
     counters = G.COUNTED
-    with G.DEVICE_LOCK:
+    with G.DEVICE_LOCK, CA.recorded_all_reduces() as calls_chain:
         _zero(counters)
         enc_tp = M.encode(local, mel, hp, dtype=bf16, tp=tp)
         xk_tp, xv_tp = M.compute_cross_kv(local, enc_tp, hp, dtype=bf16, itype="q8", tp=tp)
@@ -3327,28 +3633,60 @@ def scale_out_nccl(path: str, pcm: np.ndarray) -> dict:
     inputs = {"tp": (local, xk_tp, xv_tp), "none": (ctx.params, xk_1, xv_1)}
     res, ms = {}, {}
     _zero(counters)
-    for name, fn in fns.items():
-        p, xk, xv = inputs[name]
-        for rep in range(2):             # the first call captures the graphs
-            torch.cuda.synchronize()
-            steps0, t = fn.steps, time.perf_counter()
-            res[name] = fn(p, padded, len(prompt), xk, xv, base, initial, 0.0, 0,
-                           ctx.n_len_org, 0, 0)
-            torch.cuda.synchronize()
-            ms[name] = (time.perf_counter() - t) * 1e3 / max(1, fn.steps - steps0)
+    # the first call of each captures its graphs; then the two in turn, and
+    # each one's median ms per step (host clock, one window a call)
+    with CA.recorded_all_reduces() as calls:
+        for rep in range(1 + WINDOW_REPEATS):
+            for name, fn in fns.items():
+                p, xk, xv = inputs[name]
+                torch.cuda.synchronize()
+                steps0, t = fn.steps, time.perf_counter()
+                res[name] = fn(p, padded, len(prompt), xk, xv, base, initial, 0.0, 0,
+                               ctx.n_len_org, 0, 0)
+                torch.cuda.synchronize()
+                if rep:
+                    ms.setdefault(name, []).append(
+                        (time.perf_counter() - t) * 1e3 / max(1, fn.steps - steps0))
+    runs = ms
+    ms = {name: float(np.median(v)) for name, v in runs.items()}
     n_win = _counts(counters)
     fields_equal = all(np.array_equal(a, b) for a, b in zip(res["tp"], res["none"]))
     _rank_log(f"a. encode + cross-K/V q8 + prompt pass + 3 steps with tp == tp=None bit for "
               f"bit: {same}; tokens={tok_tp}; window through graphs: tokens={int(res['tp'].n_tok[0])} "
               f"WindowResult equal={fields_equal} graphs_captured={fns['tp'].graphs} "
-              f"eager_windows={fns['tp'].eager_windows} ms_per_step tp={ms['tp']:.3f} "
-              f"tp=None={ms['none']:.3f} (NVIDIA card, one rank); launches encode={n_enc} "
+              f"eager_windows={fns['tp'].eager_windows} ms_per_step median of "
+              f"{WINDOW_REPEATS} tp={ms['tp']:.3f} tp=None={ms['none']:.3f} (all: tp="
+              f"{[round(v, 3) for v in runs['tp']]} tp=None={[round(v, 3) for v in runs['none']]}; "
+              f"{nvidia_smi_line()}, one rank); launches encode={n_enc} "
               f"windows={n_win}")
     assert same and fields_equal, "a 1 x 1 NCCL mesh must compute what tp=None computes"
     assert fns["tp"].graphs > 0 and fns["tp"].eager_windows == 0
     assert n_enc["self_attention_qkv"] > 0 and n_win["self_attend_q8"] > 0
+    # a one-rank group launches no collective (parallel/mesh.py), so the
+    # graphs hold none
+    _rank_log(f"a. all_reduce launches on the 1 x 1 mesh: encode and steps "
+              f"{len(calls_chain)}, windows {len(calls)}")
+    assert calls_chain == [] and calls == [], "a one-rank group launched an all-reduce"
+    graph_ar = _nccl_graph_all_reduce()
+    # the collective audit's step (parallel/collective_audit.py, the JAX
+    # tool's default dims) at tp = 1 over NCCL, float and q8 caches
+    ahp = CA.audit_hparams(4, 1024, 16)
+    for itype in ("f16", "q8"):
+        audit_calls, _ = CA.step_collectives(ahp, mesh, 8, itype, device="cuda")
+        for line in CA.header(4, 1024, 16, 8, itype) + CA.table_rows(1, audit_calls, 4):
+            _rank_log(f"a. audit {line}")
+        assert audit_calls == [], "the audit at tp = 1 must read no collective"
+    # the scaling bench's 1x1 line (parallel/scaling_bench.py): synthetic
+    # dense bf16 turbo, 4 windows on the beam axis, chains of 8 and 32 steps
+    t = time.perf_counter()
+    step_s = SB.step_seconds(SB.DIMS["large-v3-turbo"], mesh, 4, 32, bf16, "cuda")
+    line = SB.config_line("1x1", "large-v3-turbo", 1, 1, 4, 4 / step_s, None)
+    _rank_log(f"a. scaling_bench {json.dumps(line)} step_ms={1e3 * step_s:.3f} "
+              f"wall_s={time.perf_counter() - t:.1f}")
+    assert line["tok_s"] > 0 and line["efficiency_vs_linear"] == 1.0
     return {"same": same and fields_equal, "graphs": fns["tp"].graphs, "ms_tp": ms["tp"],
-            "ms_none": ms["none"], "launches": n_enc, "window_launches": n_win}
+            "ms_none": ms["none"], "launches": n_enc, "window_launches": n_win,
+            "graph_all_reduce": graph_ar, "scaling": line}
 
 
 def _tp_whisper(wm, pcm: np.ndarray, counters) -> dict:
@@ -3949,7 +4287,8 @@ def main() -> int:
             "whisper-cli, whisper-bench", t_start)
     counters = G.COUNTED
     pcm = seeded_audio(40.0, seed=0)
-    # the turbo file serves phases 4 and 6; removed when main returns
+    # the whole turbo file serves phase 4 (the main path); removed when main
+    # returns
     turbo = tempfile.TemporaryDirectory()
     tmp = turbo.name
     path = os.path.join(tmp, "large-v3-turbo-q5_0.bin")
@@ -3958,6 +4297,8 @@ def main() -> int:
     log(f"  synth_s={time.perf_counter() - t0:.1f} bytes={os.path.getsize(path)}")
     ctx, segs_q8, launches = run_main_path(W, counters, path, "q8", pcm)
     graph_matches_eager(ctx, counters, "greedy", seeks=(0,))
+    check_bucketed(M, QM, DA, G, ctx, pcm[:16000 * 30])
+    check_qmm_auto(QM, dev)
     profile_window(W, ctx, pcm[:16000 * 30], "graphs")
     with eager_windows(ctx):
         profile_window(W, ctx, pcm[:16000 * 30], "eager")
@@ -3996,18 +4337,21 @@ def main() -> int:
         card_matches_cpu(tmp)
 
     heading("6. batched serving: whisper-server with concurrent requests, whisper-cli -p 4", t_start)
-    serve_batched(TS, counters, path, turbo.name)
-    run_cli_parallel(TC, TBA, counters, path, wav, turbo.name)
+    # phases 6, 7 and 9-12 on the turbo file cut to 4 of its 32 encoder layers
+    cut = os.path.join(turbo.name, "turbo-4enc-q5_0.bin")
+    write_turbo_cut(cut)
+    serve_batched(TS, counters, cut, turbo.name)
+    run_cli_parallel(TC, TBA, counters, cut, wav, turbo.name)
 
     heading("7. before and after the window loop: VAD, device mel, DTW", t_start)
     vad_path = os.path.join(turbo.name, "silero-synth.bin")
     write_vad_model(vad_path, synth_vad_tensors(seed=0))
     pcm_vad = vad_clip()
     thr = check_vad(vad_path, pcm_vad)
-    check_device_mel(path, pcm_vad)
+    check_device_mel(cut, pcm_vad)
     wav_vad = os.path.join(turbo.name, "audio-40s-silences.wav")
     write_wav(wav_vad, pcm_vad)
-    cli_dtw = run_cli_vad_dtw(W, TC, DTW, counters, path, wav_vad, vad_path, thr, pcm_vad,
+    cli_dtw = run_cli_vad_dtw(W, TC, DTW, counters, cut, wav_vad, vad_path, thr, pcm_vad,
                               turbo.name)
 
     heading("8. Parakeet-TDT: full width, packed q5_0, the TDT loop's graphs, "
@@ -4016,21 +4360,21 @@ def main() -> int:
 
     heading("9. the parity mode and grammars: load(precision=ggml_cpu_f16), graphs vs "
             "eager, whisper-cli --precision/-p 2/--grammar, card vs CPU", t_start)
-    check_parity_grammar(W, M, TC, counters, wav, pcm, turbo.name)
+    check_parity_grammar(W, M, TC, counters, cut, wav, pcm, turbo.name)
 
     heading("10. the rest of the CLIs and the format tools: whisper-stream, whisper-command, "
             "whisper-bench -w 0, imatrix capture, whisper-quantize q4_k/iq2_xxs, "
             "card vs CPU", t_start)
-    bench = check_tools(W, counters, path, wav, pcm, st, tools.name)
+    bench = check_tools(W, counters, cut, wav, pcm, st, tools.name)
 
     heading("11. the C ABI and fine-tuning: libwhisper_tpu_torch.so in process and the C "
             "hosts on the card, fine-tuning at full width, card vs CPU", t_start)
-    check_abi_and_training(W, counters, path, pcm, turbo.name, here, (vad_path, pcm_vad, thr))
+    check_abi_and_training(W, counters, cut, pcm, turbo.name, here, (vad_path, pcm_vad, thr))
 
     heading("12. scale-out: a 1 x 1 NCCL mesh through graphs; two ranks on the card over "
             "gloo: Whisper tp=2, transcribe_multihost dp=2, Parakeet tp=2, fine-tuning dp=2",
             t_start)
-    check_scale_out(path, os.path.join(turbo.name, "parakeet-q5_0.bin"), pcm, here)
+    check_scale_out(cut, os.path.join(turbo.name, "parakeet-q5_0.bin"), pcm, here)
     turbo.cleanup()
 
     heading("10b. phase 10's small q4_k and iq2_xxs files, card vs CPU (their "

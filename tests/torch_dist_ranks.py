@@ -1,6 +1,6 @@
 """Rank functions of the port's scale-out tests (tests/test_torch_sharding.py,
 test_torch_parakeet_sharding.py, test_torch_multihost.py,
-test_torch_opt_dp.py).
+test_torch_opt_dp.py, test_torch_collectives.py).
 
 `parallel/launch.py` runs them in processes of their own over gloo on the
 CPU.  This module imports numpy and the port only, so a rank imports no
@@ -389,3 +389,36 @@ def planted_faults(path: str, pcm: np.ndarray) -> Dict[str, Any]:
     finally:
         TO.OptContext.step = sound
     return res
+
+
+def collectives(layers: int, state: int, heads: int, beams: int) -> Dict[str, Any]:
+    """tests/test_torch_collectives.py on 2 ranks: parallel/mesh.py's two
+    all-reduces on a one-rank group (a (2, 1) mesh's tp axis) and on both
+    ranks, and the collective audit's decode step (parallel/
+    collective_audit.py) at tp = 1 and tp = 2 with float and q8 caches,
+    with the one-rank step's logits against tp=None's."""
+    from whisper_tpu_torch.parallel import collective_audit as CA
+
+    out: Dict[str, Any] = {}
+    solo = PM.make_mesh(2, 1)
+    pair = PM.make_mesh(1, 2)
+    g = torch.Generator().manual_seed(dist.get_rank())
+    for name, group in (("one_rank", PM.axis_group(solo, "tp")),
+                        ("two_ranks", PM.axis_group(pair, "tp"))):
+        x = torch.randn(4, 5, generator=g)
+        x0, y = x.clone(), x.clone()
+        with CA.recorded_all_reduces() as calls:
+            s = PM.all_reduce_sum(x, group)
+            m = PM.all_reduce_max(y, group)
+        out[name] = {"calls": [c[0] for c in calls], "in": x0.numpy(), "sum": s.numpy(),
+                     "max": m.numpy(), "group_size": PM.group_size(group)}
+    hp = CA.audit_hparams(layers, state, heads)
+    _, ref = CA.step_collectives(hp, None, beams)
+    for itype in ("f16", "q8"):
+        calls1, lg1 = CA.step_collectives(hp, solo, beams, itype)
+        out[f"tp1_{itype}"] = calls1
+        out[f"tp2_{itype}"] = CA.step_collectives(hp, pair, beams, itype)[0]
+        if itype == "f16":
+            out["tp1_equal_none"] = bool(torch.equal(lg1, ref))
+    out["foreign"] = foreign()
+    return out

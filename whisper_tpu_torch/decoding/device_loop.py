@@ -457,11 +457,23 @@ class LoopState:
 def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                         compute_dtype, no_timestamps: bool,
                         single_segment: bool, vocab_eot: int, vocab_beg: int,
-                        kv_itype: str = "f16", strategy: str = "greedy",
-                        n_windows: int = 1, parity: bool = False, tp=None):
+                        vmap_windows: bool = False, kv_itype: str = "f16",
+                        strategy: str = "greedy", n_windows: int = 1,
+                        parity: bool = False, tp=None):
     """Build the whole-window decode function for one (lane count, prompt
     bucket, timestamp mode, strategy, window count): "greedy" (greedy or
     best-of sampling lanes) or "beam" (beam search at t=0).
+
+    vmap_windows (with n_windows = 1) is the JAX package's vmapped mode: the
+    function takes the per-window arguments stacked on a leading window axis,
+    as its `in_axes` do (prompt (W, bucket), prompt_len, xk, xv (W, L, ...),
+    temperature, seek, seek_end and rng_seed, each W long; the masks and
+    max_tokens shared), decodes each window as the one-window decoder does,
+    in turn, and returns every field as (W, ...).  The native mode
+    (n_windows = W) batches the windows' rows into one decode instead and
+    takes precedence, as in the JAX package.  vmap_windows is reference-only,
+    kept for parity with the JAX surface: no caller of the port selects it
+    (the native mode is the batched path).
 
     n_windows = W > 1 is the JAX package's native window batching
     (`decode_windows_native`): W windows x n_beams lanes on one row axis,
@@ -732,6 +744,20 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
             decode_window.readbacks += 1
             return st.result(prompt_probs)
 
+    def each_window(params, prompt, prompt_len, xk, xv, base_mask, initial_mask,
+                    temperature, seek, seek_end, max_tokens: int, rng_seed,
+                    on_graphs: bool) -> WindowResult:
+        """vmap_windows: the one-window decode of each window of the stacked
+        arguments, the results stacked on a leading window axis."""
+        res = [run(params, prompt[w], int(prompt_len[w]), _map_planes(lambda a: a[w], xk),
+                   _map_planes(lambda a: a[w], xv), base_mask, initial_mask,
+                   float(temperature[w]), int(seek[w]), int(seek_end[w]), max_tokens,
+                   int(rng_seed[w]), on_graphs)
+               for w in range(prompt.shape[0])]
+        return WindowResult(*(np.stack(f) for f in zip(*res)))
+
+    call = each_window if vmap_windows and not native else run
+
     def decode_window(params, prompt, prompt_len, xk, xv, base_mask,
                       initial_mask, temperature, seek, seek_end,
                       max_tokens: int, rng_seed) -> WindowResult:
@@ -739,11 +765,11 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
         if on_card and not graphs_ok and not decode_window.eager_windows:
             log_info(f"window decoder: eager loop on the card, the tp group's backend "
                      f"({torch.distributed.get_backend(tp)}) cannot be captured\n")
-        return run(params, prompt, prompt_len, xk, xv, base_mask, initial_mask,
-                   temperature, seek, seek_end, max_tokens, rng_seed,
-                   on_graphs=on_card and graphs_ok)
+        return call(params, prompt, prompt_len, xk, xv, base_mask, initial_mask,
+                    temperature, seek, seek_end, max_tokens, rng_seed,
+                    on_graphs=on_card and graphs_ok)
 
-    decode_window.eager = functools.partial(run, on_graphs=False)
+    decode_window.eager = functools.partial(call, on_graphs=False)
     decode_window.windows = decode_window.readbacks = decode_window.steps = 0
     decode_window.graphs = decode_window.capture_us = decode_window.eager_windows = 0
     return decode_window

@@ -373,6 +373,19 @@ def joint_logits(joint: Dict[str, torch.Tensor], enc_t: torch.Tensor,
                  pred_out: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """logits over vocab + blank + durations (src/parakeet.cpp:2302-2352).
     enc_t: [B, n_state], pred_out: [B, n_pred_dim]."""
-    enc = F.linear(enc_t, joint["enc_w"].to(dtype)) + joint["enc_b"].to(dtype)
+    return joint_out(joint, joint_enc(joint, enc_t, dtype), pred_out, dtype)
+
+
+def joint_enc(joint: Dict[str, torch.Tensor], enc_t: torch.Tensor,
+              dtype=torch.float32) -> torch.Tensor:
+    """The joint's encoder half, enc_t @ enc_w + enc_b, over any leading
+    dims (the chunked TDT loop hoists it over every frame)."""
+    return F.linear(enc_t, joint["enc_w"].to(dtype)) + joint["enc_b"].to(dtype)
+
+
+def joint_out(joint: Dict[str, torch.Tensor], enc: torch.Tensor, pred_out: torch.Tensor,
+              dtype=torch.float32) -> torch.Tensor:
+    """The rest of the joint: relu(enc + pred_out) @ net_w + net_b, with
+    `enc` from joint_enc (pred_out broadcast against its leading dims)."""
     h = torch.relu(enc + pred_out)
     return F.linear(h, joint["net_w"].to(dtype)) + joint["net_b"].to(dtype)

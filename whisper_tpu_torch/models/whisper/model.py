@@ -49,7 +49,8 @@ import torch.nn.functional as F
 
 from ...ops import attention as flash
 from ...ops import decode_attn, enc_attn
-from ...ops.qmm import QWeight, QWeightT, embed_lookup, qmmt_auto, qmmt_fused_auto
+from ...ops.qmm import (QWeight, QWeightT, embed_lookup, qmm_auto, qmmt_auto,
+                        qmmt_fused_auto)
 from ...parallel.mesh import all_reduce_max, all_reduce_sum, group_size
 from .hparams import WhisperHParams
 
@@ -173,19 +174,11 @@ def _mm_ggml_q(x: torch.Tensor, w: QWGGML) -> torch.Tensor:
     return y.reshape(*lead, out_dim)
 
 
-def _dequant(qw: QWeight) -> torch.Tensor:
-    """(R, K) f32 from packed planes."""
-    qk = qw.codes.shape[-1] // qw.scales.shape[-1]
-    w = qw.codes.float() * torch.repeat_interleave(qw.scales, qk, dim=-1)
-    if qw.mins is not None:
-        w = w + torch.repeat_interleave(qw.mins, qk, dim=-1)
-    return w
-
-
 def _mm(x: torch.Tensor, w, dtype) -> torch.Tensor:
     """x @ w with f32 accumulation; operands rounded to `dtype`.  A QWeightT
     goes through the streaming dequant kernel (ops/qmm.py qmmt); a QWeight
-    ((out, in) planes) is dequantized first; a QWGGML takes the parity
+    ((out, in) planes) through `qmm_auto` (dequantized in `dtype`, as the
+    JAX package's); a QWGGML takes the parity
     mode's integer block dots.  A CapturedWeight hands x to its collector
     first."""
     if isinstance(w, CapturedWeight):
@@ -196,7 +189,7 @@ def _mm(x: torch.Tensor, w, dtype) -> torch.Tensor:
     if isinstance(w, QWeightT):
         return qmmt_auto(x, w, dtype)
     if isinstance(w, QWeight):
-        return matmul_f32(x, _dequant(w).T, dtype)
+        return qmm_auto(x, w, dtype)
     return matmul_f32(x, w, dtype)
 
 
@@ -658,9 +651,37 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
                            ln=(dec["ln_w"], dec["ln_b"]), eps=eps)
     else:
         x = layer_norm(x, dec["ln_w"], dec["ln_b"], eps)
-        if isinstance(tok_embd, QWGGML):
+        if isinstance(tok_embd, (QWGGML, QWeight)):
             logits = _mm(x, tok_embd, dtype)       # file orientation (V, S)
         else:
-            w = _dequant(tok_embd) if isinstance(tok_embd, QWeight) else tok_embd
-            logits = _mm(x, w.T, dtype)
+            logits = _mm(x, tok_embd.T, dtype)
     return logits.float(), cache
+
+
+def decode_step_bucketed(params: Dict[str, Any], tokens: torch.Tensor,
+                         positions: torch.Tensor, kv_head, cache, xk, xv,
+                         hp: WhisperHParams, dtype=torch.bfloat16, attn_mask=None,
+                         xkv_group: int = 1, n_buckets: int = 4, parity: bool = False,
+                         tp=None):
+    """decode_step over the smallest `attn_ctx_buckets` context at or above
+    the occupancy kv_head + n_tok (the last bucket past it).  Cells from the
+    occupancy on are unwritten and masked, so the result is the full-context
+    step's but for the reduction order over fewer cells; on the card the q8
+    cache's K3 launches at that context (A < n_text_ctx).
+
+    kv_head: a host int, or a 0-d tensor that is read back once (the JAX
+    function switches on the traced value; here the bucket is a host
+    choice), so a tensor cannot be passed under CUDA graph capture: the
+    window loop captures one graph per bucket segment instead
+    (decoding/device_loop.py)."""
+    if torch.is_tensor(kv_head):
+        if kv_head.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_step_bucketed reads kv_head back to the host, "
+                               "which a CUDA graph capture cannot do; pass a host int")
+        kv_head = int(kv_head)
+    sizes = attn_ctx_buckets(hp.n_text_ctx, n_buckets)
+    occ = kv_head + tokens.shape[1]
+    a = next((s for s in sizes if s >= occ), sizes[-1])
+    return decode_step(params, tokens, positions, kv_head, cache, xk, xv, hp, dtype=dtype,
+                       attn_mask=attn_mask, attn_ctx=a, xkv_group=xkv_group,
+                       parity=parity, tp=tp)

@@ -20,7 +20,8 @@ them, which the tests hold to the JAX package's Pallas kernel.
 `qmm` is the product over planes in file orientation, codes (R, K), with
 the weight dequantized to bf16 before a bf16 product (the JAX package's
 `qmm`, which whisper-bench -w 2 times): csrc/qmm.cu on a CUDA tensor,
-`qmm_plain` on a CPU tensor.
+`qmm_plain` on a CPU tensor.  `qmm_auto`, the model's product over such
+planes, is plain tensor code, as it is plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -375,3 +376,44 @@ def embed_lookup(qw: QWeight, tokens: torch.Tensor,
     if qw.mins is not None:
         out = out + torch.repeat_interleave(qw.mins[tokens], qk, dim=-1)
     return out.to(dtype)
+
+
+def qmm_auto(x: torch.Tensor, qw: QWeight, dtype=torch.bfloat16) -> torch.Tensor:
+    """x @ dequant(qw)^T over any leading dims of x, f32 out (the JAX
+    `qmm_auto`, plain tensor code): the weight dequantized IN `dtype`,
+    W = dtype(code) * dtype(scale) (+ dtype(min)), each step rounded to
+    `dtype` as XLA rounds it, then a product of `dtype` operands with f32
+    sums.  At bf16 a scale with more than 8 significant bits rounds before
+    the product, so this is not dequantizing in f32 and rounding once."""
+    lead = x.shape[:-1]
+    R, K = qw.codes.shape
+    qk = K // qw.scales.shape[1]
+    w = qw.codes.to(dtype) * torch.repeat_interleave(qw.scales.to(dtype), qk, dim=1)
+    if qw.mins is not None:
+        w = w + torch.repeat_interleave(qw.mins.to(dtype), qk, dim=1)
+    x2 = x.reshape(-1, K).to(dtype)
+    if dtype == torch.float32 or x.device.type != "cuda":
+        # dtype-rounded operands multiply exactly in f32
+        y = torch.matmul(x2.float(), w.float().T)
+    else:
+        y = torch.mm(x2, w.T, out_dtype=torch.float32)
+    return y.reshape(*lead, R)
+
+
+def dequantize_qweight(qw: QWeight, dtype=torch.float32) -> torch.Tensor:
+    """The dense (R, K) weight: dequantized in f32, rounded to `dtype` once."""
+    qk = qw.codes.shape[-1] // qw.scales.shape[-1]
+    out = qw.codes.float() * torch.repeat_interleave(qw.scales, qk, dim=1)
+    if qw.mins is not None:
+        out = out + torch.repeat_interleave(qw.mins, qk, dim=1)
+    return out.to(dtype)
+
+
+def from_qtensor(qt, device="cuda") -> QWeight:
+    """A QWeight on `device` from a formats.quants.QTensor; affine formats
+    (q4_1/q5_1, K-quants) keep their mins plane."""
+    def t(a, dt):
+        return None if a is None else torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    return QWeight(t(qt.codes, torch.int8), t(qt.scales, torch.float32),
+                   t(qt.mins, torch.float32))

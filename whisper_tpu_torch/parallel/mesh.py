@@ -65,15 +65,17 @@ def group_rank(group) -> int:
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """x summed over `group` in place (the partial products of a
-    row-parallel projection); x unchanged for None."""
-    if group is not None:
+    row-parallel projection); x unchanged, and no collective launched, for
+    None or a one-rank group (a one-device JAX mesh has no collective)."""
+    if group_size(group) > 1:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
-    """The elementwise max over `group`, in place; x unchanged for None."""
-    if group is not None:
+    """The elementwise max over `group`, in place; x unchanged for None or
+    a one-rank group."""
+    if group_size(group) > 1:
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
