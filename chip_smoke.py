@@ -657,7 +657,7 @@ def kernel_ptxas(log_text: str, kernel: str) -> list:
 # K6's shapes at the encoder's T = 1536 with 1500 real rows: turbo (20
 # heads of 64), the same width in heads of 128, and the parity matrix's mini
 # (2 heads of 32) and multilingual mini (6 heads of 16), which take the
-# CUDA-core kernel (phase 13 runs them)
+# mma.sync kernel (phase 13 runs them)
 FLASH_SHAPES = ((20, 64), (10, 128), (2, 32), (6, 16))
 # the output is rounded to bf16: one bf16 step of the largest real output
 # (2^-7 of it), as K4's check
@@ -739,6 +739,8 @@ def check_flash_shape(dev, FA, g, T: int, true_len: int, h: int, d: int) -> dict
     log(f"  time  flash_self_attention[H={h},D={d},T={T}]: kernel_ms={ms:.5f} (f32 qkv) "
         f"kernel_bf16_qkv_ms={ms_bf16:.5f} plain_ms={plain_ms:.5f} "
         f"library_ms={library_ms:.5f} bound_ms={b_ms:.5f} ({by})")
+    log(f"  speed flash_self_attention[H={h},D={d},T={T}]: below_library={ms < library_ms} "
+        f"below_plain={ms < plain_ms} (f32 qkv; not gated)")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
                 flops=flops, bound_ms=b_ms, err=err)
 
@@ -747,7 +749,7 @@ def check_flash(dev, FA, ptxas: str):
     """K6 at each of FLASH_SHAPES (`check_flash_shape`); the JSON row is
     turbo's, one encode's 32 layers as K4's, with the largest error of all
     shapes."""
-    for kernel in ("flash_attn_kernel", "flash_attn_small_kernel"):
+    for kernel in ("flash_attn_kernel", "flash_attn_mma_kernel"):
         for line in kernel_ptxas(ptxas, kernel):
             log(f"  ptxas {line}")
     T, true_len = 1536, 1500

@@ -36,6 +36,7 @@ from whisper_tpu_torch.models.whisper.hparams import WhisperHParams
 from whisper_tpu_torch.ops import attention as TA
 from whisper_tpu_torch.ops import decode_attn as TDA
 from whisper_tpu_torch.ops import enc_attn as TEA
+from whisper_tpu_torch.utils import flash_emulation as FE
 from whisper_tpu_torch.utils.synth import write_synth_model
 
 HP = WhisperHParams(n_vocab=51865, n_audio_ctx=300, n_audio_state=128,
@@ -51,11 +52,13 @@ def flash_flags():
     TA.set_flash_enabled(True)
 
 
-# ragged lengths against the port's 128-row blocks and 64-key tiles; true_len
-# 1 leaves one real row
+# ragged lengths against the port's query blocks (128 rows at D >= 64, 64
+# at D <= 32) and 64-key tiles; true_len 1 leaves one real row; heads of 32
+# and 16 are the parity matrix's minis
 @pytest.mark.parametrize("H,T,true_len,D", [(2, 700, 650, 64), (1, 512, 512, 128),
                                             (3, 300, 280, 64), (1, 129, 1, 64),
-                                            (2, 577, 513, 64)])
+                                            (2, 577, 513, 64), (2, 300, 280, 32),
+                                            (3, 129, 100, 16), (6, 700, 650, 16)])
 def test_flash_plain_matches_library_kernel(H, T, true_len, D):
     rng = np.random.default_rng(H * T + D)
     q, k, v = (rng.standard_normal((H, T, D)).astype(np.float32) for _ in range(3))
@@ -256,3 +259,19 @@ def test_encode_pads_only_on_the_flash_route(model, mel, monkeypatch, flash_flag
         seen.clear()
         TM.encode(tp, torch.from_numpy(mel), hp, dtype=dtype)
         assert seen == [want], (flash_on, dtype)
+
+
+# utils/flash_emulation.py walks the kernel's tiles in plain PyTorch: each
+# of its designs computes the plain version's function within one bf16
+# step of the largest real output (chip_smoke.FLASH_REL_TOL, as the card
+# tests hold the kernel), and every row, junk rows too, stays finite
+@pytest.mark.parametrize("mode", sorted(FE.MODES))
+@pytest.mark.parametrize("H,T,true_len,D", [(2, 300, 280, 32), (3, 129, 100, 16)])
+def test_flash_emulation_matches_plain(mode, H, T, true_len, D):
+    g = torch.Generator().manual_seed(H * T + D)
+    q, k, v = (torch.randn((H, T, D), generator=g) for _ in range(3))
+    ref = TA.flash_self_attention_plain(q, k, v, true_len=true_len)
+    out = FE.emulate(q, k, v, true_len=true_len, **FE.MODES[mode])
+    assert torch.isfinite(out).all()
+    err = (out[:, :true_len] - ref[:, :true_len]).abs().max()
+    assert err <= 8e-3 * ref[:, :true_len].abs().max()

@@ -47,6 +47,23 @@ __device__ __forceinline__ void wtt_mma_bf16(float* c, const uint32_t* a, const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Four 8x8 bf16 matrices from shared memory into mma.sync fragments: lane
+// 8i + j gives the address of row j of matrix i, and r[i] receives this
+// lane's pair of matrix i; _trans transposes each matrix, for a B operand
+// stored k by n (as V is)
+__device__ __forceinline__ void wtt_ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void wtt_ldsm_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // Asynchronous copies into shared memory (cp.async; commit and wait at the
 // call site).  wtt_cp_async16 bypasses L1 and copies `bytes` (16, or 0 to
 // fill the 16 with zeros); wtt_cp_async_ca copies N (4, 8 or 16) bytes

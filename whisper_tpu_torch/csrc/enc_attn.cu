@@ -68,19 +68,6 @@ __device__ __forceinline__ void store_bf16(__nv_bfloat16* dst, const uint4& v) {
   *reinterpret_cast<uint4*>(dst) = v;
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
 // One key (or value) tile of BKV rows x D, held in registers between its
 // global load and its bf16 store to shared memory.  Rows past T read zeros.
 template <int D, int BKV, typename TIn>
@@ -127,7 +114,7 @@ __device__ __forceinline__ void tile_scores(float (&s)[BKV / 8][4], const uint32
 #pragma unroll
     for (int j = 0; j < NS; j += 2) {
       uint32_t b[4];
-      ldsm_x4(b, &Kt[(j + (mi >> 1)) * 8 + rr][kk * 16 + (mi & 1) * 8]);
+      wtt_ldsm_x4(b, &Kt[(j + (mi >> 1)) * 8 + rr][kk * 16 + (mi & 1) * 8]);
       wtt_mma_bf16(s[j], qf[kk], b);
       wtt_mma_bf16(s[j + 1], qf[kk], b + 2);
     }
@@ -236,7 +223,7 @@ enc_attn_kernel(const TIn* __restrict__ qkv, __nv_bfloat16* __restrict__ out, in
 #pragma unroll
       for (int j = 0; j < ND; j += 2) {
         uint32_t b[4];
-        ldsm_x4_trans(b, &Vt[kk * 16 + (mi & 1) * 8 + rr][(j + (mi >> 1)) * 8]);
+        wtt_ldsm_x4_trans(b, &Vt[kk * 16 + (mi & 1) * 8 + rr][(j + (mi >> 1)) * 8]);
         wtt_mma_bf16(acc[j], a, b);
         wtt_mma_bf16(acc[j + 1], a, b + 2);
       }

@@ -47,14 +47,46 @@
 // through strides too.
 //
 // Heads of 16 and 32 (the matrix's mini and multilingual minis; no real
-// Whisper size has them) take a plain CUDA-core kernel with the same
-// rounding points: a k-step of wgmma is 16 wide and a 128-byte swizzled row
-// holds 64 columns, so such heads would waste most of each tile.  One thread
-// per query row keeps q, the f32 accumulator and one key tile's scores in
-// registers; the block's 128 threads share each 64-key tile of bf16-rounded
-// K and V through shared memory.  It runs at a few percent of the tensor
-// cores' rate; these widths sit only on small models.
+// Whisper size has them) take flash_attn_mma_kernel, FlashAttention-2 on
+// mma.sync m16n8k16 (a wgmma k-step is 16 wide and a swizzled row 64, so
+// such heads would waste most of each tile).  Same rounding points, expf
+// included: ex2.approx on scores scaled by sm_scale * log2(e) was 13-22%
+// faster, but it rounds the scores elsewhere and moved a DTW path of the
+// parity matrix, card against CPU.  At T = 1536 the roofline bound is under 1 µs
+// (0.58 GFLOP at 2 heads of 32); what bounds the kernel is latency and
+// parallelism: two heads give 48 blocks of 64 query rows on 132 SMs, and
+// each warp's tile is a serial chain of S products, quad shuffles, 32
+// exps a thread on the SFU and P V products.  So:
+//   - a block is 4 warps and 64 query rows; each warp keeps its 16 rows of
+//     bf16(q) as A fragments for the whole key loop;
+//   - the row block's key tiles are split over a thread-block cluster of
+//     1, 2 or 4 blocks (the most that keeps every block of the grid
+//     resident, 4 an SM at 128 registers a thread): 192 blocks at 2 heads
+//     of 32, 288 at 6 of 16.  Each block reads only its share of K and V,
+//     so the cluster adds no device-memory traffic;
+//   - 64-key tiles of K and V, rounded to bf16, go to shared memory in
+//     rows padded by 16 bytes (ldmatrix without bank conflicts),
+//     double-buffered: the next tile's global loads are in flight in
+//     registers while the current tile's products run.  The loads are
+//     plain 16-byte (f32) and 8-byte (bf16) loads, not cp.async: the
+//     wrapper promises only 4-element alignment, and f32 input is
+//     converted on the way anyway;
+//   - S = q K^T reads K with ldmatrix; the mask is applied per score only
+//     on tiles that need it (a template chosen once a tile); P is rounded
+//     to bf16 and repacked from S's accumulators as the A operand of
+//     acc += P V, with V read by ldmatrix.trans, so nothing is stored
+//     transposed;
+//   - a block whose rows are all real skips key tiles wholly at or past
+//     n_real, as above;
+//   - at the end ranks 1 .. nc - 1 write (m, l, acc) into rank 0's shared
+//     memory (distributed shared memory, between two cluster barriers) and
+//     rank 0 merges them in rank order: no atomics, the same bits from
+//     call to call and under graph replay.
+#include <cooperative_groups.h>
+
 #include "wgmma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -327,87 +359,334 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int H
 }
 
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Heads of D = 16 and 32: FlashAttention-2 on mma.sync m16n8k16 (bf16 in,
+// f32 sums), with the rounding points of flash_attn_kernel.
+constexpr int kWarpsQ = 4;                   // warps a block, 16 query rows each
+constexpr int kMmaThreads = 32 * kWarpsQ;
+constexpr int MBQ = 16 * kWarpsQ;            // query rows per block
+constexpr int MBKV = 64;                     // keys per tile
+constexpr int kClusterMax = 4;               // blocks per cluster, at most
+constexpr int kBlocksPerSm = 4;              // resident at once (launch bounds)
 
-// Heads of D = 16 or 32: one thread per query row, 128 rows per block, key
-// tiles of BKV keys rounded to bf16 (kept as f32) in shared memory.  The
-// online softmax runs per tile, as in flash_attn_kernel: m = the running max,
-// p = exp(s - m) in f32, l += the unrounded p, acc += bf16(p) * bf16(v).
+// two consecutive elements of a q row as a bf16x2 A-fragment register
+__device__ __forceinline__ uint32_t q_pair(const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  return wtt_pack_bf16(v.x, v.y);
+}
+__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// This thread's share of one key tile and one value tile, between the
+// global load and the bf16 store to shared memory.  Keys at or past T
+// read zeros.
 template <int D, typename TIn>
-__global__ void __launch_bounds__(BQ)
-flash_attn_small_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
-                        const TIn* __restrict__ v, float* __restrict__ out, int T,
-                        int n_real, Strides st, float sm_scale) {
-  __shared__ float ks[BKV][D], vs[BKV][D];
+struct MmaTileRegs {
+  static constexpr int CPR = D / 8;                  // chunks per key row
+  static constexpr int N = MBKV * CPR / kMmaThreads;  // chunks per thread, of K and of V
+  Chunk<TIn> k[N], v[N];
+
+  __device__ __forceinline__ void load(const TIn* kh, const TIn* vh, long long k_t,
+                                       long long v_t, int kv0, int T) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int c = threadIdx.x + i * kMmaThreads;
+      const int key = kv0 + c / CPR, d = (c % CPR) * 8;
+      if (key < T) {
+        k[i].load(kh + key * k_t + d);
+        v[i].load(vh + key * v_t + d);
+      } else {
+        k[i].zero();
+        v[i].zero();
+      }
+    }
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16 (*ks)[D + 8],
+                                        __nv_bfloat16 (*vs)[D + 8]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int c = threadIdx.x + i * kMmaThreads;
+      *reinterpret_cast<uint4*>(&ks[c / CPR][(c % CPR) * 8]) = k[i].bf16();
+      *reinterpret_cast<uint4*>(&vs[c / CPR][(c % CPR) * 8]) = v[i].bf16();
+    }
+  }
+};
+
+// One tile's scores times sm_scale, the two rows'
+// maxima over this thread's columns folded into mx0, mx1.  MASK adds kMask
+// across the segments and puts kMask at key columns at or past T, as
+// flash_attn_kernel does; tiles of all-real rows and keys take MASK = false
+// and no per-score test.  s[j][e]: row r0 (e < 2) or r1, key col0 + 8j +
+// (e & 1).
+template <bool MASK, int NS>
+__device__ __forceinline__ void scale_scores(float (&s)[NS][4], float scale, int col0, int T,
+                                             int n_real, bool real0, bool real1, float& mx0,
+                                             float& mx1) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sv = s[j][e] * scale;
+      if (MASK) {
+        const int col = col0 + j * 8 + (e & 1);
+        const bool row_real = e < 2 ? real0 : real1;
+        sv = col >= T ? kMask : ((col < n_real) == row_real ? sv : sv + kMask);
+      }
+      s[j][e] = sv;
+      if (e < 2) mx0 = fmaxf(mx0, sv); else mx1 = fmaxf(mx1, sv);
+    }
+}
+
+// floats of one warp's (acc, m, l) in the merge, lane-major
+template <int D>
+__host__ __device__ constexpr int merge_slot() {
+  return (D / 2 + 4) * 32;
+}
+
+// the tile buffers, or rank 0's merge slots of a cluster of nc blocks
+template <int D>
+int mma_smem_bytes(int nc) {
+  const int tiles = 2 * 2 * MBKV * (D + 8) * 2;
+  const int merge = (nc - 1) * kWarpsQ * merge_slot<D>() * 4;
+  return tiles > merge ? tiles : merge;
+}
+
+// One cluster of nc blocks per (MBQ query rows, head).  Rank r of the
+// cluster takes key tiles [r * per, (r + 1) * per); its warp w owns query
+// rows 16w .. 16w + 15.  The ranks' (m, l, acc) merge at the end in rank
+// 0, in rank order.
+template <int D, typename TIn>
+__global__ void __launch_bounds__(kMmaThreads, kBlocksPerSm)
+flash_attn_mma_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
+                      const TIn* __restrict__ v, float* __restrict__ out, int T, int n_real,
+                      Strides st, float sm_scale, int nc) {
+  constexpr int KS = D / 16;   // k-steps of S = q K^T
+  constexpr int NS = MBKV / 8;  // 8-key groups of S
+  constexpr int ND = D / 8;    // 8-column groups of the output
+  // [buffer][K, V][key][column]; rows padded by 16 bytes so that
+  // ldmatrix's eight row addresses fall in distinct banks
+  extern __shared__ __align__(16) uint8_t smem_mma[];
+  auto kv = reinterpret_cast<__nv_bfloat16 (*)[2][MBKV][D + 8]>(smem_mma);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int h = blockIdx.y, tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ, r = q0 + tid;
+  const int wq = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3, mi = lane >> 3, rr = lane & 7;
+  const int q0 = blockIdx.x / nc * MBQ;
+  const int r0 = q0 + wq * 16 + g, r1 = r0 + 8;
   const TIn* qh = q + h * st.q_h;
   const TIn* kh = k + h * st.k_h;
   const TIn* vh = v + h * st.v_h;
-  const bool real = r < n_real;
-  const bool all_real = q0 + BQ <= n_real;
-  const int n_tiles = ((all_real ? n_real : T) + BKV - 1) / BKV;
 
-  float qr[D], acc[D];
+  const bool real0 = r0 < n_real, real1 = r1 < n_real;
+  const bool all_real = q0 + MBQ <= n_real;
+  const int n_tiles = ((all_real ? n_real : T) + MBKV - 1) / MBKV;
+  const int per = (n_tiles + nc - 1) / nc;
+  const int j_begin = rank * per, n_mine = max(0, min(per, n_tiles - j_begin));
+
+  // bf16(q) as A fragments for the whole key loop; rows at or past T are zeros
+  uint32_t qf[KS][4];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = r < T ? wtt_round_bf16(to_f32(qh[(long long)r * st.q_t + d])) : 0.f;
-    acc[d] = 0.f;
+  for (int kk = 0; kk < KS; ++kk) {
+    const int d = kk * 16 + tg * 2;
+    qf[kk][0] = r0 < T ? q_pair(qh + r0 * st.q_t + d) : 0u;
+    qf[kk][1] = r1 < T ? q_pair(qh + r1 * st.q_t + d) : 0u;
+    qf[kk][2] = r0 < T ? q_pair(qh + r0 * st.q_t + d + 8) : 0u;
+    qf[kk][3] = r1 < T ? q_pair(qh + r1 * st.q_t + d + 8) : 0u;
   }
-  float m = -INFINITY, l = 0.f;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int kv0 = jt * BKV;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BKV * D; i += BQ) {
-      const int key = kv0 + i / D, d = i % D;
-      const bool in = key < T;
-      ks[i / D][d] = in ? wtt_round_bf16(to_f32(kh[(long long)key * st.k_t + d])) : 0.f;
-      vs[i / D][d] = in ? wtt_round_bf16(to_f32(vh[(long long)key * st.v_t + d])) : 0.f;
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // m0, m1: running maxima; l0, l1: this thread's share of the
+  // row sums (its two key columns of each 8-key group), summed over the
+  // quad at the end
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  MmaTileRegs<D, TIn> tile;
+  if (n_mine > 0) {
+    tile.load(kh, vh, st.k_t, st.v_t, j_begin * MBKV, T);
+    tile.store(kv[0][0], kv[0][1]);
+  }
+  __syncthreads();
+  for (int i = 0; i < n_mine; ++i) {
+    const int kv0 = (j_begin + i) * MBKV, buf = i & 1;
+    const bool more = i + 1 < n_mine;
+    if (more) tile.load(kh, vh, st.k_t, st.v_t, kv0 + MBKV, T);
+    const __nv_bfloat16 (*Kt)[D + 8] = kv[buf][0];
+    const __nv_bfloat16 (*Vt)[D + 8] = kv[buf][1];
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t b[4];
+        wtt_ldsm_x4(b, &Kt[(j + (mi >> 1)) * 8 + rr][kk * 16 + (mi & 1) * 8]);
+        wtt_mma_bf16(s[j], qf[kk], b);
+        wtt_mma_bf16(s[j + 1], qf[kk], b + 2);
+      }
+
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (all_real && kv0 + MBKV <= n_real)
+      scale_scores<false>(s, sm_scale, kv0 + tg * 2, T, n_real, real0, real1, mx0, mx1);
+    else
+      scale_scores<true>(s, sm_scale, kv0 + tg * 2, T, n_real, real0, real1, mx0, mx1);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(WTT_FULL_MASK, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(WTT_FULL_MASK, mx1, off));
     }
+    // p = exp(s - m) with expf, as the plain version (the header says why
+    // not in base 2); expf(-inf) = 0 on the first tile
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = expf(s[j][0] - mn0); s[j][1] = expf(s[j][1] - mn0);
+      s[j][2] = expf(s[j][2] - mn1); s[j][3] = expf(s[j][3] - mn1);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+    l0 = al0 * l0 + sum0;
+    l1 = al1 * l1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][0] *= al0; acc[j][1] *= al0;
+      acc[j][2] *= al1; acc[j][3] *= al1;
+    }
+
+    // acc += bf16(p) V: p repacked from S's accumulators as the A operand,
+    // 16 keys a k-step; V read with ldmatrix.trans as the B operand
+#pragma unroll
+    for (int kk = 0; kk < MBKV / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = wtt_pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = wtt_pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = wtt_pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = wtt_pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int j = 0; j < ND; j += 2) {
+        uint32_t b[4];
+        wtt_ldsm_x4_trans(b, &Vt[kk * 16 + (mi & 1) * 8 + rr][(j + (mi >> 1)) * 8]);
+        wtt_mma_bf16(acc[j], a, b);
+        wtt_mma_bf16(acc[j + 1], a, b + 2);
+      }
+    }
+    // the other buffer was last read by tile i - 1, before the barrier
+    // that ended it
+    if (more) tile.store(kv[buf ^ 1][0], kv[buf ^ 1][1]);
     __syncthreads();
-    float s[BKV];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      const int col = kv0 + j;
-      float sv = dot * sm_scale;
-      sv = col >= T ? kMask : ((col < n_real) == real ? sv : sv + kMask);
-      s[j] = sv;
-      mx = fmaxf(mx, sv);
-    }
-    const float mn = fmaxf(m, mx), al = expf(m - mn);
-    float sum = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= al;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      const float p = expf(s[j] - mn);
-      sum += p;
-      const float pb = wtt_round_bf16(p);
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(pb, vs[j][d], acc[d]);
-    }
-    l = al * l + sum;
-    m = mn;
   }
-  if (r < T) {
 #pragma unroll
-    for (int d = 0; d < D; ++d)
-      out[h * st.o_h + (long long)r * st.o_t + d] = wtt_round_bf16(acc[d] / l);
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(WTT_FULL_MASK, l0, off);
+    l1 += __shfl_xor_sync(WTT_FULL_MASK, l1, off);
+  }
+
+  // ranks 1 .. nc - 1 hand (m, l, acc) to rank 0 through its shared memory
+  // (its tile buffers, free once the whole cluster is past its tiles),
+  // lane-major; rank 0 merges them in rank order, so the result is the
+  // same bits from call to call (a rank with no tile has m = -inf, l = 0)
+  if (nc > 1) {
+    constexpr int SLOT = merge_slot<D>();
+    float* mg = reinterpret_cast<float*>(smem_mma);
+    cluster.sync();
+    if (rank > 0) {
+      float* p = cluster.map_shared_rank(mg, 0) + ((rank - 1) * kWarpsQ + wq) * SLOT + lane;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[(4 * j + e) * 32] = acc[j][e];
+      p[ND * 128] = m0; p[ND * 128 + 32] = m1;
+      p[ND * 128 + 64] = l0; p[ND * 128 + 96] = l1;
+    }
+    cluster.sync();
+    if (rank > 0) return;
+    for (int o = 0; o < nc - 1; ++o) {
+      const float* p = mg + (o * kWarpsQ + wq) * SLOT + lane;
+      const float om0 = p[ND * 128], om1 = p[ND * 128 + 32];
+      const float mn0 = fmaxf(m0, om0), mn1 = fmaxf(m1, om1);
+      const float a0 = expf(m0 - mn0), b0 = expf(om0 - mn0);
+      const float a1 = expf(m1 - mn1), b1 = expf(om1 - mn1);
+      l0 = a0 * l0 + b0 * p[ND * 128 + 64];
+      l1 = a1 * l1 + b1 * p[ND * 128 + 96];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        acc[j][0] = a0 * acc[j][0] + b0 * p[(4 * j) * 32];
+        acc[j][1] = a0 * acc[j][1] + b0 * p[(4 * j + 1) * 32];
+        acc[j][2] = a1 * acc[j][2] + b1 * p[(4 * j + 2) * 32];
+        acc[j][3] = a1 * acc[j][3] + b1 * p[(4 * j + 3) * 32];
+      }
+      m0 = mn0;
+      m1 = mn1;
+    }
+  }
+
+  // acc[j][e]: row r0 (e < 2) or r1, column 8j + 2tg + (e & 1)
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const int d = j * 8 + tg * 2;
+    if (r0 < T)
+      *reinterpret_cast<float2*>(out + h * st.o_h + r0 * st.o_t + d) =
+          make_float2(wtt_round_bf16(acc[j][0] / l0), wtt_round_bf16(acc[j][1] / l0));
+    if (r1 < T)
+      *reinterpret_cast<float2*>(out + h * st.o_h + r1 * st.o_t + d) =
+          make_float2(wtt_round_bf16(acc[j][2] / l1), wtt_round_bf16(acc[j][3] / l1));
   }
 }
 
+// Blocks per cluster: the most (up to kClusterMax) that keeps the grid
+// within kBlocksPerSm blocks an SM (the launch bounds' registers), so that
+// every block is resident at once
+inline int pick_cluster(int blocks) {
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n_sm = 132;
+  }
+  int nc = 1;
+  while (nc < kClusterMax && blocks * nc * 2 <= kBlocksPerSm * n_sm) nc *= 2;
+  return nc;
+}
+
 template <int D, typename TIn>
-cudaError_t launch_small(const void* q, const void* k, const void* v, void* out, int H, int T,
-                         int n_real, const Strides& st, float sm_scale, cudaStream_t stream) {
-  dim3 grid((T + BQ - 1) / BQ, H);
-  flash_attn_small_kernel<D, TIn><<<grid, BQ, 0, stream>>>(
-      static_cast<const TIn*>(q), static_cast<const TIn*>(k), static_cast<const TIn*>(v),
-      static_cast<float*>(out), T, n_real, st, sm_scale);
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int H, int T,
+                       int n_real, const Strides& st, float sm_scale, cudaStream_t stream) {
+  const int n_qb = (T + MBQ - 1) / MBQ;
+  const int nc = pick_cluster(n_qb * H);
+  const int smem = mma_smem_bytes<D>(nc);
+  static size_t smem_allowed = 0;
+  cudaError_t err = wtt_allow_smem(flash_attn_mma_kernel<D, TIn>, smem, &smem_allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_qb * nc, H);
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_attn_mma_kernel<D, TIn>, static_cast<const TIn*>(q),
+                           static_cast<const TIn*>(k), static_cast<const TIn*>(v),
+                           static_cast<float*>(out), T, n_real, st, sm_scale, nc);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -429,9 +708,9 @@ extern "C" int wtt_flash_attn(const void* q, const void* k, const void* v, void*
   else if (D == 64) err = launch<64, float>(q, k, v, out, H, T, n_real, st, sm_scale, s);
   else if (D == 128 && in_bf16) err = launch<128, __nv_bfloat16>(q, k, v, out, H, T, n_real, st, sm_scale, s);
   else if (D == 128) err = launch<128, float>(q, k, v, out, H, T, n_real, st, sm_scale, s);
-  else if (D == 32 && in_bf16) err = launch_small<32, __nv_bfloat16>(q, k, v, out, H, T, n_real, st, sm_scale, s);
-  else if (D == 32) err = launch_small<32, float>(q, k, v, out, H, T, n_real, st, sm_scale, s);
-  else if (D == 16 && in_bf16) err = launch_small<16, __nv_bfloat16>(q, k, v, out, H, T, n_real, st, sm_scale, s);
-  else if (D == 16) err = launch_small<16, float>(q, k, v, out, H, T, n_real, st, sm_scale, s);
+  else if (D == 32 && in_bf16) err = launch_mma<32, __nv_bfloat16>(q, k, v, out, H, T, n_real, st, sm_scale, s);
+  else if (D == 32) err = launch_mma<32, float>(q, k, v, out, H, T, n_real, st, sm_scale, s);
+  else if (D == 16 && in_bf16) err = launch_mma<16, __nv_bfloat16>(q, k, v, out, H, T, n_real, st, sm_scale, s);
+  else if (D == 16) err = launch_mma<16, float>(q, k, v, out, H, T, n_real, st, sm_scale, s);
   return (int)err;
 }

@@ -6,6 +6,17 @@ segment, the padded rows another) and causal=False; here
 `flash_self_attention` launches the Hopper kernel of csrc/flash_attn.cu on
 a CUDA tensor and runs `flash_self_attention_plain` on a CPU tensor.
 
+The kernel has two designs.  Heads of 64 and 128 (every real Whisper
+size) run `wgmma` over 128-row blocks.  Heads of 32 and 16 (the parity
+matrix's minis) run FlashAttention-2 on `mma.sync`.  At those widths and
+T = 1536 the work is under a microsecond at the tensor cores' rate.  What
+bounds that kernel is parallelism and latency: 2 heads give only 48 blocks
+of 64 rows for 132 SMs, and each key tile is a serial chain of products,
+shuffles and exps.  So a thread-block cluster of up to 4 blocks splits
+each row block's key tiles, and rank 0 merges the partial softmax states
+in rank order.  The fixed order keeps results bit-identical from call to
+call, and the cluster reads no more of K and V than one block would.
+
 The encoder reaches this route when the fused-QKV kernel (ops/enc_attn.py)
 does not apply: WTPU_ENC_ATTN=flash, or a head layout that kernel refuses.
 Rows at or past `true_len` are junk that real rows never read; the JAX

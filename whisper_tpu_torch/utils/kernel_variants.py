@@ -3,9 +3,10 @@ fused-QKV attention (csrc/enc_attn.cu), of the flash attention
 (csrc/flash_attn.cu) and of the decode matmul (csrc/qmmt.cu) against
 variants of their designs that were tried and dropped.
 
-    python -m whisper_tpu_torch.utils.kernel_variants [qmm] [enc_attn] [flash_attn] [qmmt]
+    python -m whisper_tpu_torch.utils.kernel_variants [qmm] [enc_attn] [flash_attn] [flash_mma] [qmmt]
 
-on the card; with no argument it times all four.
+on the card; with no argument it times all five (flash_mma: the flash
+attention's heads of 16 and 32).
 
 Each variant is a copy of the source with a few text edits (each anchored on
 a line of the source, so a changed source fails loudly here), built with the
@@ -132,6 +133,38 @@ FLASH_VARIANTS = [("committed", []),
                   ("two_blocks_per_sm", [FLASH_LB2]),
                   ("no_prefetch", [(FLASH_LOAD, ""),
                                    (FLASH_STORE, FLASH_STORE + FLASH_LOAD.replace("    if (more) ", "      "))])]
+# K6 at heads of 16 and 32 (flash_attn_mma_kernel): blocks a cluster at
+# most, 32-row blocks, key tile depth, the softmax in base 2 (scores scaled
+# by sm_scale * log2(e), exp2f), the per-score mask test on every tile; and
+# two ablations that drop work on purpose (their error is large): no
+# next-tile loads, no exps
+MMA_BPS = "constexpr int kBlocksPerSm = 4;"
+MMA_CLUSTER = "constexpr int kClusterMax = 4;"
+MMA_LOAD = "    if (more) tile.load(kh, vh, st.k_t, st.v_t, kv0 + MBKV, T);\n"
+MMA_EXP = "      s[j][0] = expf(s[j][0] - mn0); s[j][1] = expf(s[j][1] - mn0);\n" \
+          "      s[j][2] = expf(s[j][2] - mn1); s[j][3] = expf(s[j][3] - mn1);\n"
+MMA_ALPHA = "    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);\n"
+MMA_MERGE = "      const float a0 = expf(m0 - mn0), b0 = expf(om0 - mn0);\n" \
+            "      const float a1 = expf(m1 - mn1), b1 = expf(om1 - mn1);\n"
+MMA_PLAIN = ("    if (all_real && kv0 + MBKV <= n_real)\n"
+             "      scale_scores<false>(s, sm_scale, kv0 + tg * 2, T, n_real, real0, real1, mx0, mx1);\n"
+             "    else\n"
+             "      scale_scores<true>(s, sm_scale, kv0 + tg * 2, T, n_real, real0, real1, mx0, mx1);\n")
+FLASH_MMA_VARIANTS = [
+    ("committed", []),
+    ("cluster1", [(MMA_CLUSTER, "constexpr int kClusterMax = 1;")]),
+    ("cluster2", [(MMA_CLUSTER, "constexpr int kClusterMax = 2;")]),
+    ("rows32", [("constexpr int kWarpsQ = 4;", "constexpr int kWarpsQ = 2;"),
+                (MMA_BPS, "constexpr int kBlocksPerSm = 8;")]),
+    ("bkv128", [("constexpr int MBKV = 64;", "constexpr int MBKV = 128;")]),
+    ("base2_exp2f", [(MMA_PLAIN, MMA_PLAIN.replace("sm_scale,", "sm_scale * 1.44269504f,")),
+                     (MMA_EXP, MMA_EXP.replace("expf(", "exp2f(")),
+                     (MMA_ALPHA, MMA_ALPHA.replace("expf(", "exp2f(")),
+                     (MMA_MERGE, MMA_MERGE.replace("expf(", "exp2f("))]),
+    ("mask_every_tile", [(MMA_PLAIN, MMA_PLAIN.split("    else\n")[1])]),
+    ("ablate_loads", [(MMA_LOAD, "")]),
+    ("ablate_exp", [(MMA_EXP, MMA_EXP.replace("expf(", "("))]),
+]
 
 
 # K1: the layer norm's statistics as the split-K design first computed
@@ -324,7 +357,7 @@ def build(name, tag, edits):
             if "Used" in ln or "spill" in ln or "C7513" in ln]
 
 
-def main(which=("qmm", "enc_attn", "flash_attn", "qmmt")):
+def main(which=("qmm", "enc_attn", "flash_attn", "flash_mma", "qmmt")):
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA card")
     # the same timer as chip_smoke.py phase 3, from the root of the checkout
@@ -338,6 +371,8 @@ def main(which=("qmm", "enc_attn", "flash_attn", "qmmt")):
         time_enc_attn(dev, g, device_ms)
     if "flash_attn" in which:
         time_flash_attn(dev, device_ms)
+    if "flash_mma" in which:
+        time_flash_mma(dev, device_ms)
     if "qmmt" in which:
         time_qmmt(dev, g, device_ms)
 
@@ -481,5 +516,48 @@ def time_flash_attn(dev, device_ms):
         bufs.clear()
 
 
+def time_flash_mma(dev, device_ms):
+    """K6's heads of 32 and 16 as chip_smoke.py phase 3 times them (2 heads
+    of 32 and 6 of 16 at T = 1536, 1500 real, head views of the f32 and
+    bf16 projection), each variant's largest error over real rows against
+    the plain version, as a share of FLASH_REL_TOL * max |ref|."""
+    from chip_smoke import FLASH_REL_TOL
+    T, true_len = 1536, 1500
+    shapes = ((2, 32), (6, 16))
+    qkv = {hd: torch.randn((T, 3 * hd[0] * hd[1]),
+                           generator=torch.Generator().manual_seed(4)).to(dev)
+           for hd in shapes}
+
+    def views(buf, h, d):
+        return [buf[:, i * h * d:(i + 1) * h * d].reshape(T, h, d).transpose(0, 1)
+                for i in range(3)]
+
+    refs = {(hd, dt): FA.flash_self_attention_plain(*views(qkv[hd].to(dt), *hd),
+                                                    true_len=true_len)
+            for hd in shapes for dt in (torch.float32, torch.bfloat16)}
+    bufs = {}
+    for tag, edits in FLASH_MMA_VARIANTS:
+        ptxas = build("flash_attn", tag, edits)
+        for (h, d) in shapes:
+            for dt in (torch.float32, torch.bfloat16):
+                src = qkv[h, d].to(dt)
+                ref = refs[(h, d), dt][:, :true_len]
+                o = FA.flash_self_attention(*views(src, h, d), true_len=true_len)
+                torch.cuda.synchronize()
+                err = (o[:, :true_len] - ref).abs().max().item()
+                share = err / (FLASH_REL_TOL * ref.abs().max().item())
+
+                def buf(i, src=src, h=h, d=d):
+                    if (h, src.dtype, i) not in bufs:
+                        bufs[h, src.dtype, i] = views(src.clone(), h, d)
+                    return bufs[h, src.dtype, i]
+                ms = device_ms(lambda i: (lambda: FA.flash_self_attention(
+                    *buf(i), true_len=true_len)), 4 * T * h * d * src.element_size())
+                print(f"flash_self_attention[H={h}, D={d}, T={T}, {str(dt)[6:]} qkv] {tag}: "
+                      f"ms={ms:.5f} err/tol={share:.3f}", flush=True)
+        print(f"  flash_attn {tag} ptxas={ptxas}", flush=True)
+        bufs.clear()
+
+
 if __name__ == "__main__":
-    main(sys.argv[1:] or ("qmm", "enc_attn", "flash_attn", "qmmt"))
+    main(sys.argv[1:] or ("qmm", "enc_attn", "flash_attn", "flash_mma", "qmmt"))

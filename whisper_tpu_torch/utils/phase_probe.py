@@ -1,8 +1,11 @@
-"""Where a launch of the decode matmul (csrc/qmmt.cu) and of the decode
-attention (csrc/decode_attn.cu) spends its time, block by block.
+"""Where a launch of the decode matmul (csrc/qmmt.cu), of the decode
+attention (csrc/decode_attn.cu) or of the flash attention's heads of 16
+and 32 (csrc/flash_attn.cu flash_attn_mma_kernel) spends its time, block
+by block.
 
     python -m whisper_tpu_torch.utils.phase_probe            # on the card
     PROBE=fixup python -m whisper_tpu_torch.utils.phase_probe  # K1's fix-up
+    PROBE=flash python -m whisper_tpu_torch.utils.phase_probe  # K6, D = 32 and 16
 
 It copies each source into whisper_tpu_torch/build/, stamps thread 0 of
 every block with clock64() and %globaltimer at fixed points of the kernel
@@ -37,7 +40,8 @@ HEAD = ('#include "common.cuh"\n__device__ unsigned long long* g_stamps;\n'
 
 
 def patch(src, points):
-    s = src.replace('#include "common.cuh"\n', HEAD, 1)
+    inc = '#include "wgmma.cuh"\n' if '#include "wgmma.cuh"\n' in src else '#include "common.cuh"\n'
+    s = src.replace(inc, HEAD.replace('#include "common.cuh"\n', inc), 1)
     for i, (anchor, after) in enumerate(points):
         assert anchor in s, anchor
         s = s.replace(anchor, anchor + PH.format(i=i) if after else PH.format(i=i) + anchor, 1)
@@ -71,6 +75,21 @@ K3 = [
     ("    // this block's P V, warps summed in order", False),
     ("    if (rank == 0) {\n      for (int i = tid; i < gc * D; i += kThreads) {", False),
     ("  }\n}\n\ntemplate <int D, int GC>", False),
+]
+
+# K6 at D <= 32, thread 0 of each block: the prologue (q fragments, first
+# tile), then the last key tile's steps (next tile's loads issued, S = q
+# K^T issued, the softmax, P V issued, the next tile stored and the block
+# barrier), then the cluster's merge and the output (rank 0)
+K6 = [
+    ("  const int j_begin = rank * per, n_mine = max(0, min(per, n_tiles - j_begin));\n", True),
+    ("  for (int i = 0; i < n_mine; ++i) {\n", False),
+    ("    const __nv_bfloat16 (*Vt)[D + 8] = kv[buf][1];\n", True),
+    ("    if (all_real && kv0 + MBKV <= n_real)\n", False),
+    ("    // acc += bf16(p) V: p repacked", False),
+    ("    // the other buffer was last read by tile i - 1", False),
+    ("#pragma unroll\n  for (int off = 1; off < 4; off <<= 1) {\n    l0 += __shfl_xor_sync", False),
+    ("          make_float2(wtt_round_bf16(acc[j][2] / l1), wtt_round_bf16(acc[j][3] / l1));\n  }\n", True),
 ]
 
 
@@ -110,6 +129,8 @@ def main():
         raise SystemExit("phase_probe: no CUDA card")
     dev = torch.device("cuda")
     buf = torch.zeros(16 * 8192, dtype=torch.int64, device=dev)
+    if os.environ.get("PROBE") == "flash":
+        return probe_flash(dev, buf)
     lib1 = build("qmmt", K1F if os.environ.get("PROBE") == "fixup" else K1)
     lib1.wtt_set_stamps(buf.data_ptr())
     _cuda._LIBS["qmmt"] = lib1
@@ -156,6 +177,30 @@ def main():
         DA.self_attend_q8(kv, scale, q, mask, l=3, attn_ctx=A)
         torch.cuda.synchronize()
         report(f"self_attend_q8 B={B}", buf.view(-1, 16).cpu().numpy(), B * H * DA.CLUSTER)
+
+
+def probe_flash(dev, buf):
+    """K6 at chip_smoke.py phase 3's small shapes (T = 1536, 1500 real, head
+    views of the f32 projection): phases 2-5 are the last key tile's."""
+    from ..ops import attention as FA
+
+    lib = build("flash_attn", K6)
+    lib.wtt_set_stamps(buf.data_ptr())
+    _cuda._LIBS["flash_attn"] = lib
+    T, true_len = 1536, 1500
+    for h, d in ((2, 32), (6, 16)):
+        qkv = torch.randn((T, 3 * h * d), generator=torch.Generator().manual_seed(4)).to(dev)
+        views = [qkv[:, i * h * d:(i + 1) * h * d].reshape(T, h, d).transpose(0, 1)
+                 for i in range(3)]
+        for _ in range(3):
+            FA.flash_self_attention(*views, true_len=true_len)
+        torch.cuda.synchronize()
+        buf.zero_()
+        FA.flash_self_attention(*views, true_len=true_len)
+        torch.cuda.synchronize()
+        # every block of every cluster stamps; unused slots stay zero
+        report(f"flash_attn_mma_kernel H={h} D={d}", buf.view(-1, 16).cpu().numpy(),
+               buf.numel() // 16)
 
 
 if __name__ == "__main__":
