@@ -9,7 +9,10 @@ Phases (any failure exits non-zero; nothing is caught):
      each kernel's registers, shared memory and spills;
   3. each kernel against its plain PyTorch version on the card at the
      shapes its path gives it (large-v3-turbo; whisper-bench -w 2's 4096^3
-     for qmm; K2 at a DTW pass's 32 and 128 rows; K6 also at heads of
+     for qmm; K2 at a DTW pass's 32 and 128 rows; K1 at beam, batched and
+     prompt-pass rows up to 4 x 256, every call of its many-row route held
+     bit for bit over two calls and a CUDA-graph replay, both of its routes
+     timed per step at 2-20 rows; K6 also at heads of
      128 and at the parity matrix's heads of 32 and 16, each with two
      planted faults that its tolerance must see), max error beside its
      tolerance, then device times of the kernel, the plain version and a
@@ -249,18 +252,24 @@ DTW_USES = (("qkv", 1280, 3840, 1), ("o_xq_xo", 1280, 1280, 3), ("mlp0", 1280, 5
 # at T = 4 x bucket rows, and K3 at B = 4, G = bucket with each row's
 # left-pad mask
 NATIVE_PROMPT_BUCKETS = (4, 32, 256)
+# K1's two routes timed against each other per step at these rows (the
+# wrapper's crossover QM.MMA_MIN_T comes from them)
+ROUTE_T = (2, 4, 5, 8, 20)
 
 
 def check_qmmt(dev, Q, QM):
-    """K1 (qmmt_fused) per decode-path use at T = 1 (a greedy step) and T = 5
-    (a beam step of five lanes), at the batched steps' T = W x G of
-    BATCHED_T (W = 4 greedy windows, 8 rows, W = 2 beam windows of 5, W = 4
-    beam windows of 5), prompt passes at T = 4 and 32, the qkv and logits
-    uses of natively batched prompt passes at T = 4 x NATIVE_PROMPT_BUCKETS
-    (W = 4 windows), and K2 (qmmt) at T = 1 and at a DTW pass's DTW_T rows
-    (its JSON row: one pass's 24 launches at T = 32), at turbo widths, on
-    planes installed as the main path installs them (rows pitched to 64
-    columns)."""
+    """K1 (qmmt_fused) per decode-path use at T = 1 (a greedy step), T = 2
+    (two greedy windows batched) and T = 5 (a beam step of five lanes), at
+    the batched steps' T = W x G of BATCHED_T (W = 4 greedy windows, 8
+    rows, W = 2 beam windows of 5, W = 4 beam windows of 5), prompt passes
+    at T = 4, 32 and 224 (one window's buckets), the qkv and logits uses of
+    natively batched prompt passes at T = 4 x NATIVE_PROMPT_BUCKETS (W = 4
+    windows), and K2 (qmmt) at T = 1 and at a DTW pass's DTW_T rows (its
+    JSON row: one pass's 24 launches at T = 32), at turbo widths, on planes
+    installed as the main path installs them (rows pitched to 64 columns).
+    Every call of the many-row route (QM.qmmt_rows) is also held bit for
+    bit over two calls and a CUDA-graph replay; both routes are timed per
+    step at ROUTE_T."""
     S = 1280
     uses = [  # name, K, R, ln, bias, act, res, launches per step
         ("qkv", S, 3 * S, True, True, None, False, 4),
@@ -271,22 +280,22 @@ def check_qmmt(dev, Q, QM):
         ("mlp1", 4 * S, S, False, True, None, True, 4),
         ("logits", S, 51866, True, False, None, False, 1),
     ]
-    cases = ([(n, T, *u) for T in (1, 5, *BATCHED_T) for n, *u in uses]
-             + [("qkv_prompt4", 4, S, 3 * S, True, True, None, False, 0),
-                ("logits_prompt4", 4, S, 51866, True, False, None, False, 0),
-                ("qkv_prompt32", 32, S, 3 * S, True, True, None, False, 0),
-                ("logits_prompt32", 32, S, 51866, True, False, None, False, 0)]
+    cases = ([(n, T, *u) for T in (1, 2, 5, *BATCHED_T) for n, *u in uses]
+             + [(f"{u}_prompt{T}", T, S, R, True, u == "qkv", None, False, 0)
+                for T in (4, 32, 224) for u, R in (("qkv", 3 * S), ("logits", 51866))]
              + [(f"{u}_native_prompt4x{b}", 4 * b, S, R, True, u == "qkv", None, False, 0)
                 for b in NATIVE_PROMPT_BUCKETS for u, R in (("qkv", 3 * S), ("logits", 51866))]
              + [("qmmt", 1, S, 3 * S, False, False, None, False, 0)]
              + [(f"qmmt_dtw_{u}", T, K, R, False, False, None, False, 4 * n)
                 for T in DTW_T for u, K, R, n in DTW_USES])
     g = torch.Generator().manual_seed(0)
-    step_key = {1: "qmmt_fused", 5: "qmmt_fused_beam",
+    step_key = {1: "qmmt_fused", 2: "qmmt_fused_T2", 5: "qmmt_fused_beam",
                 **{T: f"qmmt_fused_T{T}" for T in BATCHED_T}}
     dtw_key = {T: "qmmt" if T == DTW_T[0] else f"qmmt_dtw_T{T}" for T in DTW_T}
     agg = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, err=0.0, bytes=0, flops=0)
            for k in (*dtw_key.values(), *step_key.values())}
+    route_ms = {T: {"rows": 0.0, "fma": 0.0} for T in ROUTE_T}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, T, K, R, ln, bias, act, res, per_step in cases:
         w = torch.randn((R, K), generator=g).numpy()
         p = Q.unpack_to_planes(Q.quantize(w, Q.GGML_TYPE_Q5_0), Q.GGML_TYPE_Q5_0, (R, K))
@@ -301,17 +310,23 @@ def check_qmmt(dev, Q, QM):
         kernel = QM.qmmt if bare else QM.qmmt_fused
         call = ((lambda: QM.qmmt(x, codes, scales, dtype=torch.bfloat16)) if bare
                 else (lambda: QM.qmmt_fused(x, codes, scales, **kw)))
+        n_rows = QM.qmmt_rows.launches
         y = call()
+        rows = QM.qmmt_rows.launches > n_rows
+        assert rows == QM._use_mma(T, K, 32, torch.bfloat16), (name, T)
         ref = QM.qmmt_fused_plain(x, codes, scales, **kw)
         torch.cuda.synchronize()
         err = (y - ref).abs().max().item()
         tol = 1e-4 * ref.abs().max().item()
-        ks = QM.slice_rows(K, R, 32, torch.cuda.get_device_properties(dev).multi_processor_count, T)
+        if rows:
+            plan = QM.rows_plan(T, K, R, 32, n_sm)
+            grid = f"{-(-R // QM.TILE)}x{plan.slices}x{plan.groups} rows={plan.rows} n={plan.n}"
+        else:
+            grid = f"{-(-R // QM.TILE)}x{-(-K // QM.slice_rows(K, R, 32, n_sm, T))}"
         log(f"  check {kernel.__name__}[{name}] T={T} K={K} R={R} pitch={codes.stride(0)} "
-            f"grid={-(-R // QM.TILE)}x{-(-K // ks)}: max_abs_err={err:.3e} tol={tol:.3e}")
+            f"route={'rows' if rows else 'fma'} grid={grid}: max_abs_err={err:.3e} tol={tol:.3e}")
         assert math.isfinite(err) and err <= tol, name
-        if (name in ("logits", "mlp1", "qkv_prompt4") and T in (1, 5, 4, 20)
-                or name == "qmmt_dtw_mlp1"):
+        if rows or (name in ("logits", "mlp1", "qkv_prompt4") and T in (1, 5, 4, 20)):
             assert same_under_graph(call), f"{name}: not bit-identical across calls"
             log(f"  check {kernel.__name__}[{name}] T={T}: bit-identical over two calls "
                 f"and a CUDA-graph replay")
@@ -353,24 +368,27 @@ def check_qmmt(dev, Q, QM):
         ms = device_ms(run_kernel, nbytes)
         plain_ms = device_ms(run_plain, nbytes)
         library_ms = device_ms(run_library, 2 * K * R)
-        if T in (1, 5, 32, 8, 20) and not bare:
-            # the product on the other route (tensor cores against CUDA-core
-            # FMAs); the wrapper takes the tensor cores from QM.MMA_MIN_T rows
+        if T in ROUTE_T and per_step and not bare:
+            # the product on the other route (the many-row route against
+            # CUDA-core FMAs); the wrapper takes the many-row route from
+            # QM.MMA_MIN_T rows
             chosen = QM.MMA_MIN_T
-            QM.MMA_MIN_T = 1 if T < chosen else T + 1
+            QM.MMA_MIN_T = T + 1 if rows else 1
             other_ms = device_ms(run_kernel, nbytes)
             QM.MMA_MIN_T = chosen
-            mma = T >= chosen
-            log(f"  time  {kernel.__name__}[{name}] T={T} by product route: "
-                f"mma_ms={ms if mma else other_ms:.5f} fma_ms={other_ms if mma else ms:.5f} "
-                f"(the wrapper takes {'mma' if mma else 'fma'})")
-        if name in ("qkv", "mlp0", "mlp1", "logits") and T in (1, 5):
-            # rows of K per block, measured here; the wrapper's choice is
-            # QM.slice_rows
+            route_ms[T]["rows"] += per_step * (ms if rows else other_ms)
+            route_ms[T]["fma"] += per_step * (other_ms if rows else ms)
+            log(f"  time  {kernel.__name__}[{name}] T={T} by route: "
+                f"rows_ms={ms if rows else other_ms:.5f} fma_ms={other_ms if rows else ms:.5f} "
+                f"(the wrapper takes {'rows' if rows else 'fma'})")
+        if name in ("qkv", "mlp0", "mlp1", "logits") and T in (1, 5) and not rows:
+            # rows of K per block of the FMA route, measured here; the
+            # wrapper's choice is QM.slice_rows
+            ks = QM.slice_rows(K, R, 32, n_sm, T)
             chosen, times = QM.slice_rows, {}
-            for rows in (128, 256, 512):
-                QM.slice_rows = lambda *_, rows=rows: rows
-                times[rows] = device_ms(run_kernel, nbytes)
+            for kr in (128, 256, 512):
+                QM.slice_rows = lambda *_, kr=kr: kr
+                times[kr] = device_ms(run_kernel, nbytes)
             QM.slice_rows = chosen
             log(f"  time  qmmt_fused[{name}] T={T} by K-slice rows: "
                 + " ".join(f"{r}:{t:.5f}" for r, t in times.items()) + f" (the wrapper takes {ks})")
@@ -401,6 +419,10 @@ def check_qmmt(dev, Q, QM):
             f"bound_ms={b_ms:.5f} ({by}) ratio_to_T1={a['ms'] / agg['qmmt_fused']['ms']:.3f} "
             f"bound_ratio_to_T1={b_ms / bound_ms(agg['qmmt_fused']['bytes'], agg['qmmt_fused']['flops'])[0]:.3f} "
             f"kernel_not_slower_than_library={a['ms'] <= a['library_ms']}")
+    for T, r in route_ms.items():
+        log(f"  qmmt_fused per step (T={T}), 25 launches, by route: rows_ms={r['rows']:.5f} "
+            f"fma_ms={r['fma']:.5f} faster={'rows' if r['rows'] < r['fma'] else 'fma'} "
+            f"(the wrapper takes {'rows' if T >= QM.MMA_MIN_T else 'fma'})")
     for T, key in dtw_key.items():
         a = agg[key]
         b_ms, by = bound_ms(a["bytes"], a["flops"])
@@ -408,6 +430,9 @@ def check_qmmt(dev, Q, QM):
             f"plain_ms={a['plain_ms']:.5f} library_ms={a['library_ms']:.5f} "
             f"bound_ms={b_ms:.5f} ({by}) kernel_to_library={a['ms'] / a['library_ms']:.3f} "
             f"kernel_to_bound={a['ms'] / b_ms:.3f}")
+    # the many-row route's JSON row: one batched step of W = 4 greedy
+    # windows (T = 8)
+    agg["qmmt_rows"] = dict(agg["qmmt_fused_T8"])
     for key in (*step_key.values(), *dtw_key.values()):
         into = "qmmt" if key in dtw_key.values() else "qmmt_fused"
         if key != into:
@@ -1736,6 +1761,8 @@ def serve_batched(TS, counters, path: str, tmp: str) -> dict:
         assert conc[name][0].count("-->") >= 1
     assert largest >= 2 and coalesced >= 1, (rounds, coalesced, largest)
     assert launches["qmmt_fused"] > 0 and launches["self_attention_qkv"] > 0, launches
+    # natively batched windows reach K1's many-row route
+    assert launches["qmmt_rows"] > 0, launches
     return launches
 
 
@@ -1966,6 +1993,8 @@ def run_cli_vad_dtw(W, TC, DTW, counters, model_path: str, wav: str, vad_path: s
     assert windows and any(ts for _, _, ts, _ in windows)
     assert launches["qmmt"] == 6 * 4 * tm.n_dtw > 0, launches
     assert launches["qmmt_fused"] > 0 and launches["self_attention_qkv"] > 0
+    # the DTW passes' rows (a window's tokens) take K2's many-row route
+    assert launches["qmmt_rows"] > 0, launches
     return launches
 
 
@@ -4342,7 +4371,7 @@ def main() -> int:
     # phases 6, 7 and 9-12 on the turbo file cut to 4 of its 32 encoder layers
     cut = os.path.join(turbo.name, "turbo-4enc-q5_0.bin")
     write_turbo_cut(cut)
-    serve_batched(TS, counters, cut, turbo.name)
+    served = serve_batched(TS, counters, cut, turbo.name)
     run_cli_parallel(TC, TBA, counters, cut, wav, turbo.name)
 
     heading("7. before and after the window loop: VAD, device mel, DTW", t_start)
@@ -4396,12 +4425,15 @@ def main() -> int:
                 "plain_ms": agg["plain_ms"], "bound_ms": b_ms, "bound_by": by,
                 "library_ms": agg["library_ms"]}
 
-    # launches: K1, K3, K4 on the q8 load() + transcribe() path; K2 on the
-    # whisper-cli's DTW passes (phase 7); K5 on whisper-bench -w 2; K6 on the
-    # flash-route encode
+    # launches: K1, K3, K4 on the q8 load() + transcribe() path; K1's
+    # many-row route on the server's natively batched windows (phase 6); K2
+    # on the whisper-cli's DTW passes (phase 7); K5 on whisper-bench -w 2;
+    # K6 on the flash-route encode
     kernels = [
         entry("qmmt_fused", "whisper_tpu_torch/csrc/qmmt.cu",
               "whisper_tpu/ops/qmm.py:333", k1["qmmt_fused"], launches["qmmt_fused"]),
+        entry("qmmt_rows", "whisper_tpu_torch/csrc/qmmt.cu",
+              "whisper_tpu/ops/qmm.py:333", k1["qmmt_rows"], served["qmmt_rows"]),
         entry("qmmt", "whisper_tpu_torch/csrc/qmmt.cu",
               "whisper_tpu/ops/qmm.py:216", k1["qmmt"], cli_dtw["qmmt"]),
         entry("self_attend_q8", "whisper_tpu_torch/csrc/decode_attn.cu",

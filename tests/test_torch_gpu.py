@@ -368,8 +368,81 @@ def test_qmmt_fused_kernel_batched_rows(cuda, T, K, R, use):
     assert same_under_graph(call)
 
 
+# K1/K2's many-row route (csrc/qmmt.cu qmmt_rows_kernel) on the turbo
+# decoder's uses, forced at 1-8 rows (QM.MMA_MIN_T = 1) and taken by the
+# wrapper above: batched steps (16, 20), DTW passes and prompt buckets (32,
+# 128, 224) and a batched prompt pass (1024, its row groups and resident
+# converted codes); the logits head's ragged last tile (R = 51866), mlp1's
+# K = 5120.  Within 1e-4 of max |y| of the plain version, launched through
+# the route, bit-identical over two calls and a CUDA-graph replay.
+@pytest.mark.parametrize("T", [1, 2, 3, 4, 5, 6, 7, 8, 16, 20, 32, 128, 224, 1024])
+@pytest.mark.parametrize("K,R,use", [(1280, 3840, "qkv"), (1280, 5120, "mlp0"),
+                                     (5120, 1280, "mlp1"), (1280, 51866, "logits")])
+def test_qmmt_rows_route(cuda, T, K, R, use, monkeypatch):
+    from chip_smoke import same_under_graph
+
+    monkeypatch.setattr(QM, "MMA_MIN_T", 1)
+    codes, scales, mins = _planes(Q.GGML_TYPE_Q5_0, K, R, 6, cuda)
+    g = torch.Generator().manual_seed(T)
+    x, lw, lb, b, res = (torch.randn(s, generator=g).to(cuda)
+                         for s in ((T, K), (K,), (K,), (R,), (T, R)))
+    kw = {"qkv": dict(ln_w=lw, ln_b=lb, bias=b), "logits": dict(ln_w=lw, ln_b=lb),
+          "mlp0": dict(ln_w=lw, ln_b=lb, bias=b, act="gelu"),
+          "mlp1": dict(bias=b, residual=res)}[use]
+    call = lambda: QM.qmmt_fused(x, codes, scales, mins, dtype=torch.bfloat16, **kw)
+    n = QM.qmmt_rows.launches
+    y = call()
+    assert QM.qmmt_rows.launches == n + 1
+    ref = QM.qmmt_fused_plain(x, codes, scales, mins, dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert same_under_graph(call)
+    if use == "mlp1":
+        # K2, the bare product, through the same route
+        y2 = QM.qmmt(x, codes, scales, mins, dtype=torch.bfloat16)
+        ref2 = QM.qmmt_fused_plain(x, codes, scales, mins, dtype=torch.bfloat16)
+        assert (y2 - ref2).abs().max() <= 1e-4 * ref2.abs().max()
+
+
+def _planes_qk16(k, r, seed, device, affine):
+    # qk = 16 planes (NVFP4's block size), codes as a 5-bit format's
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-16, 16, (k, r)).astype(np.int8)
+    scales = (0.01 + 0.02 * rng.random((k // 16, r))).astype(np.float32)
+    mins = (0.05 * rng.standard_normal((k // 16, r))).astype(np.float32) if affine else None
+    return QM.pitch_qweight_t(codes, scales, mins, device=device)
+
+
+# the many-row route on affine planes (q4_1: mins and the rows' block sums)
+# and on qk = 16 planes, symmetric and affine, with the layer norm, GELU
+# and the residual
+@pytest.mark.parametrize("T", [8, 20, 128, 224])
+@pytest.mark.parametrize("planes", ["q4_1", "qk16", "qk16_affine"])
+def test_qmmt_rows_route_planes(cuda, T, planes, monkeypatch):
+    from chip_smoke import same_under_graph
+
+    K, R = 1280, 1280
+    if planes == "q4_1":
+        codes, scales, mins = _planes(Q.GGML_TYPE_Q4_1, K, R, 8, cuda)
+    else:
+        codes, scales, mins = _planes_qk16(K, R, 8, cuda, planes == "qk16_affine")
+    g = torch.Generator().manual_seed(T)
+    x, lw, lb, b, res = (torch.randn(s, generator=g).to(cuda)
+                         for s in ((T, K), (K,), (K,), (R,), (T, R)))
+    for kw in (dict(ln_w=lw, ln_b=lb, bias=b, act="gelu"), dict(bias=b, residual=res)):
+        call = lambda: QM.qmmt_fused(x, codes, scales, mins, dtype=torch.bfloat16, **kw)
+        n = QM.qmmt_rows.launches
+        y = call()
+        assert QM.qmmt_rows.launches == n + 1
+        ref = QM.qmmt_fused_plain(x, codes, scales, mins, dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+        assert same_under_graph(call)
+
+
 # the bare product and mlp1's residual epilogue on both product routes
-# (mma.sync from QM.MMA_MIN_T rows, CUDA-core FMAs below) against an f64
+# (the many-row route, "mma", from QM.MMA_MIN_T rows, CUDA-core FMAs
+# below) against an f64
 # computation on the same bf16-rounded operands, at 5 to 64 rows
 @pytest.mark.parametrize("T", [5, 8, 16, 20, 32, 33, 40, 48, 64])
 @pytest.mark.parametrize("route", ["mma", "fma"])

@@ -17,7 +17,7 @@ from whisper_tpu_torch.utils import phase_probe as PP
 
 VARIANTS = [("qmm", KV.QMM_VARIANTS), ("enc_attn", KV.ENC_VARIANTS),
             ("flash_attn", KV.FLASH_VARIANTS), ("flash_attn", KV.FLASH_MMA_VARIANTS),
-            ("qmmt", KV.QMMT_VARIANTS)]
+            ("qmmt", KV.QMMT_VARIANTS), ("qmmt", KV.QMMT_ROWS_VARIANTS)]
 
 
 def _source(name):
@@ -25,7 +25,8 @@ def _source(name):
 
 
 @pytest.mark.parametrize("name,variants", VARIANTS,
-                         ids=["qmm", "enc_attn", "flash_wgmma", "flash_mma", "qmmt"])
+                         ids=["qmm", "enc_attn", "flash_wgmma", "flash_mma", "qmmt",
+                              "qmmt_rows"])
 def test_variant_edits_find_their_anchors(name, variants):
     src = _source(name)
     assert variants[0] == ("committed", [])
@@ -38,11 +39,13 @@ def test_variant_edits_find_their_anchors(name, variants):
 
 
 @pytest.mark.parametrize("name,points,kernel", [("qmmt", PP.K1, None), ("qmmt", PP.K1F, None),
+                                                ("qmmt", PP.KR, "qmmt_rows_kernel"),
                                                 ("decode_attn", PP.K3, None),
                                                 ("flash_attn", PP.K6, "flash_attn_mma_kernel")])
 def test_probe_points_find_their_anchors(name, points, kernel):
     out = PP.patch(_source(name), points)
     assert out.count("g_stamps[o_ + 8 + ") == len(points)
+    assert out.count("__device__ unsigned long long* g_stamps;") == 1
     if kernel is not None:
         # every stamp lands in the probed kernel, after its definition starts
         assert out.index("g_stamps[o_ + 8 + ") > out.index(f"{kernel}(const")

@@ -47,9 +47,7 @@
 //     accumulator straight to out (T, R): each warp store writes whole
 //     32-byte sectors (8 consecutive weight rows of 4 activation rows).
 //   - No split-K: two calls give bit-identical results.
-#include <cuda.h>
-
-#include "wgmma.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -64,43 +62,6 @@ constexpr int X_BYTES = BT * BK * 2;         // 32768
 constexpr int C_BYTES = BR * BK;             // 8192
 constexpr int STAGE_BYTES = X_BYTES + C_BYTES;  // 40960, a multiple of 1024
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // byte offset of (row, byte) in a tile of 64-byte rows written by TMA with
 // 64-byte swizzle: 16-byte chunk bits [4, 6) XOR address bits [7, 9)
@@ -279,43 +240,6 @@ qmm_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CU
       if (rb < R) out[(size_t)(t + 1) * R + rb] = acc[4 * j + 3];
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime: the
-// library links no libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major (rows, cols) tensor read in boxes of (box_rows, box_cols)
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
-              int rows, int cols, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

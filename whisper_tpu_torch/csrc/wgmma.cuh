@@ -1,6 +1,6 @@
 // Warpgroup matrix multiply (wgmma) on sm_90a: shared-memory descriptors,
-// the register-A product forms and their fences, shared by the kernels
-// that run wgmma (csrc/qmm.cu, csrc/flash_attn.cu).
+// the register-A and shared-A product forms and their fences, shared by the
+// kernels that run wgmma (csrc/qmm.cu, csrc/flash_attn.cu, csrc/qmmt.cu).
 //
 // Operands in shared memory use the 128-byte swizzle: rows of 128 bytes
 // (64 bf16), 8-row groups of 1024 bytes, the 16-byte chunk c of row r
@@ -237,4 +237,80 @@ __device__ __forceinline__ void wgmma_m64k16_ss(float* d, uint64_t desc_a, uint6
   static_assert(N == 64 || N == 128, "wgmma_m64k16_ss: N in {64, 128}");
   if constexpr (N == 64) wgmma_m64n64k16_ss<TRANS_B>(d, desc_a, desc_b, scale_d);
   else wgmma_m64n128k16_ss<TRANS_B>(d, desc_a, desc_b, scale_d);
+}
+
+// d[64 x N] += a[64 x 16] . b[16 x N] for N in {8, 16, 32, 64}, both from
+// shared memory, a MN-major (imm-trans-a 1: each 128-byte row holds the 64
+// M elements of one k, by `desc_sw128_mn`), b K-major (by `desc_sw128`);
+// scale_d = 0 ignores d.  Thread t's d[4j + e] is row 16w + g + 8 (e >> 1),
+// column 8j + 2tg + (e & 1), as above.
+__device__ __forceinline__ void wgmma_m64n8k16_ss_ta(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_m64n16k16_ss_ta(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_m64n32k16_ss_ta(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_m64n64k16_ss_ta(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16_ss_ta(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma_m64k16_ss_ta: N in {8, 16, 32, 64}");
+  if constexpr (N == 8) wgmma_m64n8k16_ss_ta(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 16) wgmma_m64n16k16_ss_ta(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 32) wgmma_m64n32k16_ss_ta(d, desc_a, desc_b, scale_d);
+  else wgmma_m64n64k16_ss_ta(d, desc_a, desc_b, scale_d);
 }

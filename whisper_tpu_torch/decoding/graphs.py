@@ -47,7 +47,7 @@ import torch
 
 from ..ops import attention, decode_attn, enc_attn, qmm
 
-COUNTED = (qmm.qmmt_fused, qmm.qmmt, qmm.qmm, decode_attn.self_attend_q8,
+COUNTED = (qmm.qmmt_fused, qmm.qmmt, qmm.qmmt_rows, qmm.qmm, decode_attn.self_attend_q8,
            enc_attn.self_attention_qkv, attention.flash_self_attention)
 
 DEVICE_LOCK = threading.RLock()

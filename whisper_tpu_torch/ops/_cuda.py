@@ -109,7 +109,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "qmmt": {"wtt_qmmt": [_P] * 11 + [_I] * 10 + [_F, _P]},
+    "qmmt": {"wtt_qmmt": [_P] * 11 + [_I] * 9 + [_F, _P],
+             "wtt_qmmt_rows": [_P] * 13 + [_I] * 10 + [_F, _P]},
     "decode_attn": {"wtt_self_attend_q8": [_P, _P, _P, _I] + [_L] * 3 + [_P, _P]
                     + [_I] * 9 + [_P]},
     "enc_attn": {"wtt_self_attention_qkv": [_P, _P] + [_I] * 5 + [_P]},

@@ -13,9 +13,12 @@ per-block scales (and mins for affine formats), so the decode matmuls read
   mins_t:   (K/qk, R) f32 per-block offsets of affine formats, or None
 
 `qmmt_fused` computes act(LN(x) @ dequant + bias) + residual and `qmmt` the
-bare product.  On a CUDA tensor both launch the Hopper kernel of
-csrc/qmmt.cu; on a CPU tensor they run the plain PyTorch version beside
-them, which the tests hold to the JAX package's Pallas kernel.
+bare product.  On a CUDA tensor both launch the Hopper kernels of
+csrc/qmmt.cu: below `MMA_MIN_T` rows (and for f32 compute) the CUDA-core
+FMA route, from it the many-row route (a row pass, then wgmma over all the
+rows, split by `rows_plan`); on a CPU tensor they run the plain PyTorch
+version beside them, which the tests hold to the JAX package's Pallas
+kernel.
 
 `qmm` is the product over planes in file orientation, codes (R, K), with
 the weight dequantized to bf16 before a bf16 product (the JAX package's
@@ -92,6 +95,31 @@ def _gelu(y: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(y, approximate="tanh")
 
 
+def _rows(x, ln_w, ln_b, eps, dtype) -> torch.Tensor:
+    """The activation rows as the kernels multiply them, (T, K) f32: the
+    layer norm from f64 sums of x and x^2 (mean and rstd rounded to f32,
+    the normalisation in f32), then rounded to `dtype`."""
+    h = x.float()
+    if ln_w is not None:
+        K = x.shape[-1]
+        h64 = h.double()
+        mean = h64.sum(-1, keepdim=True) / K
+        var = h64.square().sum(-1, keepdim=True) / K - mean * mean
+        eps32 = float(torch.tensor(eps, dtype=torch.float32))    # the kernel's f32 eps
+        rstd = (1.0 / torch.sqrt(var + eps32)).float()
+        h = (h - mean.float()) * rstd * ln_w.float() + ln_b.float()
+    return h.to(dtype).float()
+
+
+def qmmt_rows_plain(x, qk: int, ln_w=None, ln_b=None, eps: float = 1e-5):
+    """The plain version of csrc/qmmt.cu's row pass (the many-row route's
+    prologue): the rows normalised and rounded to bf16, (T, K), and each
+    qk-block's f32 sum of the rounded row, (T, K / qk), as the affine
+    formats' sum(x_blk) * min takes it."""
+    rows = _rows(x, ln_w, ln_b, eps, torch.bfloat16)
+    return rows.to(torch.bfloat16), rows.reshape(x.shape[0], -1, qk).sum(-1)
+
+
 def qmmt_fused_plain(x, codes_t, scales_t, mins_t=None, ln_w=None, ln_b=None,
                      bias=None, residual=None, act: Optional[str] = None,
                      eps: float = 1e-5, dtype=torch.bfloat16) -> torch.Tensor:
@@ -105,15 +133,7 @@ def qmmt_fused_plain(x, codes_t, scales_t, mins_t=None, ln_w=None, ln_b=None,
     T, K = x.shape
     nb, R = scales_t.shape
     qk = K // nb
-    h = x.float()
-    if ln_w is not None:
-        h64 = h.double()
-        mean = h64.sum(-1, keepdim=True) / K
-        var = h64.square().sum(-1, keepdim=True) / K - mean * mean
-        eps32 = float(torch.tensor(eps, dtype=torch.float32))    # the kernel's f32 eps
-        rstd = (1.0 / torch.sqrt(var + eps32)).float()
-        h = (h - mean.float()) * rstd * ln_w.float() + ln_b.float()
-    xb = h.to(dtype).float().reshape(T, nb, qk).transpose(0, 1)   # (nb, T, qk)
+    xb = _rows(x, ln_w, ln_b, eps, dtype).reshape(T, nb, qk).transpose(0, 1)  # (nb, T, qk)
     part = torch.bmm(xb, codes_t.reshape(nb, qk, R).float())      # (nb, T, R)
     y = (part * scales_t.float()[:, None, :]).sum(0)
     if mins_t is not None:
@@ -149,12 +169,27 @@ def _check_plane(name, t, dtype, shape):
 
 
 TILE = 64            # output columns per block of csrc/qmmt.cu
-# from this many activation rows on (a whole mma.sync N of 8), a bf16 product
-# runs on the tensor cores instead of CUDA-core FMAs; chip_smoke.py times
-# both routes at T = 1, 5 and 32
+# from this many activation rows on, a bf16 product takes the many-row route
+# (wgmma) instead of CUDA-core FMAs: chip_smoke.py phase 3 times both routes
+# a decode step at T = 2, 4, 5, 8 and 20, and the FMA route was the faster
+# below 8 (PERF.md section 6)
 MMA_MIN_T = 8
 _N_COUNTERS = 1 << 16
 _COUNTERS = {}       # device -> per-tile arrival counters, all 0 between launches
+
+
+class RouteCount:
+    """Launches of one route of `qmmt_fused` and `qmmt`, counted beside the
+    wrappers' own counts (decoding/graphs.py adds a captured graph's to
+    each replay, as for the wrappers)."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+# the calls of qmmt_fused and qmmt that took the many-row route
+qmmt_rows = RouteCount("qmmt_rows")
 
 
 def slice_rows(K: int, R: int, qk: int, n_sm: int, T: int) -> int:
@@ -169,10 +204,99 @@ def slice_rows(K: int, R: int, qk: int, n_sm: int, T: int) -> int:
     return min(ks, K)
 
 
-def _use_mma(T: int, qk: int, dtype) -> bool:
-    """The tensor-core product takes bf16 rows and whole 16-row k-steps
-    inside each qk-block."""
-    return dtype == torch.bfloat16 and qk % 16 == 0 and T >= MMA_MIN_T
+def _use_mma(T: int, K: int, qk: int, dtype) -> bool:
+    """The many-row route takes bf16 rows, whole 16-row k-steps inside each
+    qk-block and whole 64-row chunks of K; f32 compute keeps the FMA route
+    at every T."""
+    return dtype == torch.bfloat16 and qk % 16 == 0 and K % KC == 0 and T >= MMA_MIN_T
+
+
+# The many-row route's blocks (csrc/qmmt.cu qmmt_rows_kernel): 64 columns x a
+# slice of ks rows of K (whole 64-row chunks) x a group of rows of T, walked
+# in chunks of 2n rows (n in {8, 16, 32, 64} per warpgroup).
+KC = 64              # k rows of a chunk
+RC_MAX = 128         # rows of a row chunk: two warpgroups of 64
+MAX_STAGES = 8       # ring stages of a block
+MAX_A_SLOTS = 3      # converted code chunks taking turns (one row chunk a block)
+
+
+def _blocks_per_sm(n: int) -> int:
+    """Many-row blocks an SM holds (csrc/qmmt.cu's launch bounds): one at 64
+    rows a warpgroup, two below."""
+    return 1 if n >= 64 else 2
+
+
+def _smem_cap(n: int) -> int:
+    """Dynamic shared memory of one many-row block (rows_smem_cap)."""
+    return 231424 if n >= 64 else 114688
+
+
+class RowsPlan(NamedTuple):
+    ks: int          # rows of K per block
+    rows: int        # rows of T per block (a group)
+    n: int           # rows per warpgroup of a row chunk
+    slices: int
+    groups: int
+    ws_floats: int   # f32 of the split-K workspace (0 for one slice)
+
+
+def _rows_n(rows: int) -> int:
+    return 8 if rows <= 16 else 16 if rows <= 32 else 32 if rows <= 64 else 64
+
+
+def rows_stages(ks: int, n: int, chunks: int, affine: bool) -> int:
+    """Ring stages of a many-row block (csrc/qmmt.cu launch_rows): as many
+    as fit, up to 8, beside the converted code chunks (all of the slice's
+    when the block walks more than one row chunk, else up to three taking
+    turns); 0 when fewer than two fit."""
+    rc = 2 * n
+    n_kc = ks // KC
+    a_slots = n_kc if chunks > 1 or n_kc <= MAX_A_SLOTS else MAX_A_SLOTS
+    stage = (rc * 128 + 4096 + 1024 + (1024 + rc * 16 if affine else 0) + 1023) & ~1023
+    fit = min(MAX_STAGES, (_smem_cap(n) - 1024 - a_slots * KC * TILE * 2) // stage)
+    return fit if fit >= 2 else 0
+
+
+def rows_plan(T: int, K: int, R: int, qk: int, n_sm: int,
+              affine: bool = False) -> RowsPlan:
+    """The many-row route's split for T activation rows.  K is split only as
+    far as the card holds blocks in one wave (two an SM, one at 64 rows a
+    warpgroup) and no further than keeps the workspace (tiles x slices x
+    padded rows x 64 f32) within the call's code bytes (K x R), so the
+    logits head takes one slice from ~32 rows on.  Rows are split into the
+    most groups whose blocks still run in one wave, or into single row
+    chunks where a slice's converted codes cannot stay in shared memory
+    beside the ring (K = 5120 at many rows)."""
+    tiles = -(-R // TILE)
+    n_kc = -(-K // KC)
+
+    def padded(rows):      # workspace rows of a call whose groups hold `rows`
+        r = min(rows, T)
+        rc = 2 * _rows_n(r)
+        return -(-T // rows) * -(-r // rc) * rc
+
+    def split(slices):
+        ks = -(-n_kc // slices) * KC
+        return ks, -(-K // ks)
+
+    want = max(1, _blocks_per_sm(_rows_n(min(T, RC_MAX))) * n_sm // tiles)
+    cap = (K * R) // (tiles * padded(T) * TILE * 4)
+    ks, slices = split(max(1, min(want, cap, n_kc)))
+    # the most row groups whose blocks still run in one wave
+    rows, best = T, 0
+    for g in range(1, -(-T // 16) + 1):
+        r = -(-T // g)
+        r = min(T, -(-r // RC_MAX) * RC_MAX if r > RC_MAX else 2 * _rows_n(r))
+        blocks = tiles * slices * -(-T // r)
+        if blocks > best and blocks <= _blocks_per_sm(_rows_n(min(r, T))) * n_sm:
+            rows, best = r, blocks
+    n = _rows_n(min(rows, T))
+    chunks = -(-min(rows, T) // (2 * n))
+    if not rows_stages(ks, n, chunks, affine):
+        rows, n, chunks = RC_MAX, _rows_n(RC_MAX), 1
+    groups = -(-T // rows)
+    ws = tiles * groups * slices * chunks * 2 * n * TILE if slices > 1 else 0
+    return RowsPlan(ks, rows, n, slices, groups, ws)
 
 
 def _counters(device) -> torch.Tensor:
@@ -200,9 +324,10 @@ def _launch_qmmt(x, codes_t, scales_t, mins_t, ln_w, ln_b, bias, residual,
         raise ValueError(f"qmmt: bad shapes x{tuple(x.shape)} "
                          f"codes_t{tuple(codes_t.shape)} "
                          f"scales_t{tuple(scales_t.shape)}")
-    if ln_w is not None and min(T, 8) * K * 4 > 160 * 1024:
-        raise ValueError(f"qmmt: K={K} too wide for the staged rows")
     qk = K // nb
+    mma = _use_mma(T, K, qk, dtype)
+    if not mma and ln_w is not None and min(T, 8) * K * 4 > 160 * 1024:
+        raise ValueError(f"qmmt: K={K} too wide for the staged rows")
     _check("x", x, torch.float32, (T, K))
     if x.data_ptr() % 16:
         raise ValueError("qmmt: x must be 16-byte aligned")
@@ -220,21 +345,40 @@ def _launch_qmmt(x, codes_t, scales_t, mins_t, ln_w, ln_b, bias, residual,
     if residual is not None:
         _check("residual", residual, torch.float32, (T, R))
     tiles = -(-R // TILE)
-    if tiles > _N_COUNTERS:
-        raise ValueError(f"qmmt: R={R} has more tiles than counters")
-    ks = slice_rows(K, R, qk, _n_sm(x.device), T)
-    slices = -(-K // ks)
-    ws = (torch.empty(tiles * slices * T * TILE, dtype=torch.float32,
-                      device=x.device) if slices > 1 else None)
-    out = torch.empty((T, R), dtype=torch.float32, device=x.device)
+    dev = x.device
+    out = torch.empty((T, R), dtype=torch.float32, device=dev)
     lib = _cuda.library("qmmt")
     P = _cuda.ptr
+    if mma:
+        plan = rows_plan(T, K, R, qk, _n_sm(dev), mins_t is not None)
+        if tiles * plan.groups > _N_COUNTERS:
+            raise ValueError(f"qmmt: R={R}, T={T} have more tiles than counters")
+        xb = torch.empty((T, K), dtype=torch.bfloat16, device=dev)
+        # sums of the rows' qk-blocks, 4 slots a 64-row chunk of K
+        xsum = (torch.empty((T, K // 16), dtype=torch.float32, device=dev)
+                if mins_t is not None else None)
+        ws = (torch.empty(plan.ws_floats, dtype=torch.float32, device=dev)
+              if plan.slices > 1 else None)
+        rc = lib.wtt_qmmt_rows(P(x), P(codes_t), P(scales_t), P(mins_t), P(ln_w),
+                               P(ln_b), P(bias), P(residual), P(out), P(ws),
+                               P(_counters(dev)), P(xb), P(xsum), T, K, R,
+                               codes_t.stride(0), scales_t.stride(0), qk, plan.ks,
+                               plan.rows, plan.n, int(act == "gelu"), float(eps),
+                               _cuda.stream_of(x))
+        _cuda.check(lib, "wtt_qmmt_rows", rc)
+        qmmt_rows.launches += 1
+        return out
+    if tiles > _N_COUNTERS:
+        raise ValueError(f"qmmt: R={R} has more tiles than counters")
+    ks = slice_rows(K, R, qk, _n_sm(dev), T)
+    slices = -(-K // ks)
+    ws = (torch.empty(tiles * slices * T * TILE, dtype=torch.float32,
+                      device=dev) if slices > 1 else None)
     rc = lib.wtt_qmmt(P(x), P(codes_t), P(scales_t), P(mins_t), P(ln_w),
                       P(ln_b), P(bias), P(residual), P(out), P(ws),
-                      P(_counters(x.device)), T, K, R, codes_t.stride(0),
+                      P(_counters(dev)), T, K, R, codes_t.stride(0),
                       scales_t.stride(0), qk, ks, int(dtype == torch.bfloat16),
-                      int(act == "gelu"), int(_use_mma(T, qk, dtype)), float(eps),
-                      _cuda.stream_of(x))
+                      int(act == "gelu"), float(eps), _cuda.stream_of(x))
     _cuda.check(lib, "wtt_qmmt", rc)
     return out
 

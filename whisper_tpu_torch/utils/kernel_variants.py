@@ -3,10 +3,11 @@ fused-QKV attention (csrc/enc_attn.cu), of the flash attention
 (csrc/flash_attn.cu) and of the decode matmul (csrc/qmmt.cu) against
 variants of their designs that were tried and dropped.
 
-    python -m whisper_tpu_torch.utils.kernel_variants [qmm] [enc_attn] [flash_attn] [flash_mma] [qmmt]
+    python -m whisper_tpu_torch.utils.kernel_variants [qmm] [enc_attn] [flash_attn] [flash_mma] [qmmt] [qmmt_rows]
 
-on the card; with no argument it times all five (flash_mma: the flash
-attention's heads of 16 and 32).
+on the card; with no argument it times all six (flash_mma: the flash
+attention's heads of 16 and 32; qmmt_rows: ablations of the decode
+matmul's many-row route).
 
 Each variant is a copy of the source with a few text edits (each anchored on
 a line of the source, so a changed source fails loudly here), built with the
@@ -19,9 +20,9 @@ around CUDA-graph replays of calls on input copies that rotate past the
 50 MB L2): qmm at 4096^3 on bf16 x, self_attention_qkv and
 flash_self_attention at large-v3-turbo's T = 1536, true_len = 1500 on the
 f32 projection and on bf16, qmmt_fused per decode step of the turbo
-decoder (25 launches) at T = 1, 4, 8, 20 rows and the qkv and logits uses
-at a batched prompt pass's T = 128 and 1024.  The kernels of the package
-are not changed.
+decoder (25 launches) at T = 1 and 4 rows (its FMA route, whose layer norm
+the variants change; from QM.MMA_MIN_T rows the row pass computes it).
+The kernels of the package are not changed.
 """
 import ctypes
 import os
@@ -337,6 +338,24 @@ constexpr int kPerThread = 4;""")]),
 """)])]
 
 
+# K1/K2's many-row route: ablations (each drops part of the work, so its
+# error is large; they say where a call's time goes) and the row pass and
+# the product kernel alone
+QMMT_ROWS_VARIANTS = [
+    ("committed", []),
+    ("no_dependent_launch", [("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;")]),
+    ("ablate_scale", [("        scale(acc, st, bl);\n", "")]),
+    ("ablate_convert", [("        if (p < n_kc) {\n          // a slot taken in turn",
+                         "        if (p < 0) {\n          // a slot taken in turn")]),
+    ("ablate_fixup", [("    if (n_slices > 1) {\n      // split-K fix-up",
+                       "    if (n_slices < 0) {\n      // split-K fix-up")]),
+    ("row_pass_only", [("  const int groups = (T + rows - 1) / rows;\n",
+                        "  const int groups = (T + rows - 1) / rows;\n  if (groups > 0) return 0;\n")]),
+    ("products_only", [("  cudaError_t err = launch_pdl(\n      qmmt_rows_prep_kernel,",
+                        "  cudaError_t err = cudaSuccess;\n  if (T < 0) err = launch_pdl(\n      qmmt_rows_prep_kernel,")]),
+]
+
+
 def build(name, tag, edits):
     """Install a copy of csrc/<name>.cu with `edits` under the wrapper;
     returns ptxas's register and spill lines."""
@@ -357,7 +376,7 @@ def build(name, tag, edits):
             if "Used" in ln or "spill" in ln or "C7513" in ln]
 
 
-def main(which=("qmm", "enc_attn", "flash_attn", "flash_mma", "qmmt")):
+def main(which=("qmm", "enc_attn", "flash_attn", "flash_mma", "qmmt", "qmmt_rows")):
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA card")
     # the same timer as chip_smoke.py phase 3, from the root of the checkout
@@ -375,6 +394,8 @@ def main(which=("qmm", "enc_attn", "flash_attn", "flash_mma", "qmmt")):
         time_flash_mma(dev, device_ms)
     if "qmmt" in which:
         time_qmmt(dev, g, device_ms)
+    if "qmmt_rows" in which:
+        time_qmmt_rows(dev, g, device_ms)
 
 
 def time_qmm(dev, g, device_ms):
@@ -401,10 +422,10 @@ def time_qmm(dev, g, device_ms):
 
 
 def time_qmmt(dev, g, device_ms):
-    """K1 on the turbo decoder's uses (chip_smoke.py phase 3's), planes
-    pitched as the main path installs them: per decode step at T = 1, 4,
-    8, 20 (4 layers of six matmuls and the logits head), and qkv and logits
-    at T = 128 and 1024; the largest error against the plain version."""
+    """K1's FMA route on the turbo decoder's uses (chip_smoke.py phase
+    3's), planes pitched as the main path installs them: per decode step at
+    T = 1 and 4 (4 layers of six matmuls and the logits head); the largest
+    error against the plain version."""
     S = 1280
     uses = [("qkv", S, 3 * S, True, True, None, False, 4),  # K, R, ln, bias, act, res, per step
             ("o", S, S, False, True, None, True, 4),
@@ -413,8 +434,7 @@ def time_qmmt(dev, g, device_ms):
             ("mlp0", S, 4 * S, True, True, "gelu", False, 4),
             ("mlp1", 4 * S, S, False, True, None, True, 4),
             ("logits", S, 51866, True, False, None, False, 1)]
-    cases = ([(T, u) for T in (1, 4, 8, 20) for u in uses]
-             + [(T, u) for T in (128, 1024) for u in uses if u[0] in ("qkv", "logits")])
+    cases = [(T, u) for T in (1, 4) for u in uses]
     inputs = {}
     for _, (name, K, R, ln, bias, act, res, _) in cases:
         if name not in inputs:
@@ -446,14 +466,50 @@ def time_qmmt(dev, g, device_ms):
             ms = device_ms(lambda i: (lambda: QM.qmmt_fused(x, *planes(i), **kw)),
                            K * R * 9 // 8)
             copies.clear()
-            if T > 20:
-                print(f"qmmt_fused[{name}, T={T}] {tag}: ms={ms:.5f} "
-                      f"max_err/max_ref={e:.2e}", flush=True)
-            else:
-                step[T] = step.get(T, 0.0) + per_step * ms
+            step[T] = step.get(T, 0.0) + per_step * ms
         print(f"qmmt_fused per decode step (25 launches) {tag}: "
               + " ".join(f"T={T}:{v:.5f}" for T, v in step.items())
               + f" max_err/max_ref={err:.2e} ptxas={ptxas}", flush=True)
+
+
+def time_qmmt_rows(dev, g, device_ms):
+    """K1/K2's many-row route (forced at every T) on turbo shapes of
+    chip_smoke.py phase 3: a DTW pass's o projection (T = 32, 128), mlp1
+    at a batched step (T = 8) and a DTW pass (T = 32), qkv at a beam step
+    (T = 5) and a prompt pass (T = 128), the logits head at T = 20 and
+    1024, each variant's call in turn."""
+    shapes = [("o", 32, 1280, 1280, False), ("o", 128, 1280, 1280, False),
+              ("mlp1", 8, 5120, 1280, False), ("mlp1", 32, 5120, 1280, False),
+              ("qkv", 5, 1280, 3840, True), ("qkv", 128, 1280, 3840, True),
+              ("logits", 20, 1280, 51866, True), ("logits", 1024, 1280, 51866, True)]
+    libs = {tag: (build("qmmt", tag, edits), _cuda._LIBS["qmmt"])
+            for tag, edits in QMMT_ROWS_VARIANTS}
+    for tag, (ptxas, _) in libs.items():
+        print(f"qmmt_rows {tag}: ptxas={ptxas}", flush=True)
+    chosen = QM.MMA_MIN_T
+    QM.MMA_MIN_T = 1
+    for name, T, K, R, ln in shapes:
+        w = torch.randn((R, K), generator=g).numpy()
+        p = Q.unpack_to_planes(Q.quantize(w, Q.GGML_TYPE_Q5_0), Q.GGML_TYPE_Q5_0, (R, K))
+        qw = QM.pitch_qweight_t(p.codes.T, p.scales.T, device=dev)
+        x = torch.randn((T, K), generator=g).to(dev)
+        kw = dict(ln_w=torch.ones(K, device=dev), ln_b=torch.zeros(K, device=dev)) if ln else {}
+        copies = {}
+
+        def planes(i):
+            if i not in copies:
+                copies[i] = QM.pitch_qweight_t(qw.codes_t, qw.scales_t, device=dev)[:2]
+            return copies[i]
+        line = []
+        for tag, (_, lib) in libs.items():
+            _cuda._LIBS["qmmt"] = lib
+            ms = device_ms(lambda i: (lambda: QM.qmmt_fused(x, *planes(i), **kw)),
+                           K * R * 9 // 8 + T * K * 4)
+            line.append(f"{tag}={ms:.5f}")
+        copies.clear()
+        print(f"qmmt_rows[{name}, T={T}] ms: " + " ".join(line), flush=True)
+    QM.MMA_MIN_T = chosen
+    _cuda._LIBS["qmmt"] = libs["committed"][1]
 
 
 def time_enc_attn(dev, g, device_ms):
@@ -560,4 +616,4 @@ def time_flash_mma(dev, device_ms):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ("qmm", "enc_attn", "flash_attn", "flash_mma", "qmmt"))
+    main(sys.argv[1:] or ("qmm", "enc_attn", "flash_attn", "flash_mma", "qmmt", "qmmt_rows"))

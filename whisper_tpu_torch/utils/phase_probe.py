@@ -1,11 +1,12 @@
-"""Where a launch of the decode matmul (csrc/qmmt.cu), of the decode
-attention (csrc/decode_attn.cu) or of the flash attention's heads of 16
-and 32 (csrc/flash_attn.cu flash_attn_mma_kernel) spends its time, block
-by block.
+"""Where a launch of the decode matmul (csrc/qmmt.cu, its FMA route and its
+many-row route), of the decode attention (csrc/decode_attn.cu) or of the
+flash attention's heads of 16 and 32 (csrc/flash_attn.cu
+flash_attn_mma_kernel) spends its time, block by block.
 
     python -m whisper_tpu_torch.utils.phase_probe            # on the card
     PROBE=fixup python -m whisper_tpu_torch.utils.phase_probe  # K1's fix-up
     PROBE=flash python -m whisper_tpu_torch.utils.phase_probe  # K6, D = 32 and 16
+    PROBE=rows python -m whisper_tpu_torch.utils.phase_probe   # K1/K2's many rows
 
 It copies each source into whisper_tpu_torch/build/, stamps thread 0 of
 every block with clock64() and %globaltimer at fixed points of the kernel
@@ -32,7 +33,7 @@ CS = str(_cuda.CSRC)
 
 PH = ('if (threadIdx.x == 0 && g_stamps) {{ unsigned long long t_ = clock64(), g_; '
       'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_)); '
-      'size_t o_ = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 16; '
+      'size_t o_ = (((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 16; '
       'g_stamps[o_ + {i}] = t_; g_stamps[o_ + 8 + {i}] = g_; }}\n')
 HEAD = ('#include "common.cuh"\n__device__ unsigned long long* g_stamps;\n'
         'extern "C" int wtt_set_stamps(void* p) { return (int)cudaMemcpyToSymbol('
@@ -40,7 +41,8 @@ HEAD = ('#include "common.cuh"\n__device__ unsigned long long* g_stamps;\n'
 
 
 def patch(src, points):
-    inc = '#include "wgmma.cuh"\n' if '#include "wgmma.cuh"\n' in src else '#include "common.cuh"\n'
+    inc = next(f'#include "{h}"\n' for h in ("tma.cuh", "wgmma.cuh", "common.cuh")
+               if f'#include "{h}"\n' in src)
     s = src.replace(inc, HEAD.replace('#include "common.cuh"\n', inc), 1)
     for i, (anchor, after) in enumerate(points):
         assert anchor in s, anchor
@@ -65,6 +67,19 @@ K1F = [
     ("            epilogue(a, ep, y, r0 + i / BC, i % BC, col);\n    }\n", True),
     ("  if (tid == 0) a.counters[tile] = 0;\n", False),
     ("  if (!is_last) return;\n", True),
+]
+# K1/K2's many-row route (qmmt_rows_kernel), thread 0 of each block (a
+# consumer): the start, the row pass's end (griddepcontrol.wait), then in
+# the last iteration its stage published and its products retired and
+# scaled, the loop's end, the fix-up's start and end
+KR = [
+    ("  const int tid = threadIdx.x, wg = tid >> 7, lt = tid & 127;\n", True),
+    ('    asm volatile("griddepcontrol.wait;\\n" ::: "memory");\n    const int warp = lt >> 5', False),
+    ("      mbar_wait(&full[it % S], (it / S) & 1);\n", True),
+    ("      // the stage (and a converted chunk taken in turn) is consumed: one\n", False),
+    ("    if (n_slices > 1) {\n      // split-K fix-up", False),
+    ("      if (!is_last) return;\n", True),
+    ("      if (tid == 0) a.counters[unit] = 0;\n", False),
 ]
 K3 = [
     ("  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n", True),
@@ -131,6 +146,8 @@ def main():
     buf = torch.zeros(16 * 8192, dtype=torch.int64, device=dev)
     if os.environ.get("PROBE") == "flash":
         return probe_flash(dev, buf)
+    if os.environ.get("PROBE") == "rows":
+        return probe_rows(dev, buf)
     lib1 = build("qmmt", K1F if os.environ.get("PROBE") == "fixup" else K1)
     lib1.wtt_set_stamps(buf.data_ptr())
     _cuda._LIBS["qmmt"] = lib1
@@ -147,19 +164,15 @@ def main():
         kw = dict(ln_w=torch.ones(K, device=dev), ln_b=torch.zeros(K, device=dev)) if ln else {}
         if res:
             kw["residual"] = torch.randn((T, R), generator=g).to(dev)
-        for min_t in ((QM.MMA_MIN_T, T + 1) if T >= QM.MMA_MIN_T else (QM.MMA_MIN_T,)):
-            chosen, QM.MMA_MIN_T = QM.MMA_MIN_T, min_t
-            for _ in range(3):
-                QM.qmmt_fused(x, qw.codes_t, qw.scales_t, bias=torch.zeros(R, device=dev), **kw)
-            torch.cuda.synchronize()
-            buf.zero_()
+        # the FMA route (both rows counts are below QM.MMA_MIN_T)
+        for _ in range(3):
             QM.qmmt_fused(x, qw.codes_t, qw.scales_t, bias=torch.zeros(R, device=dev), **kw)
-            torch.cuda.synchronize()
-            QM.MMA_MIN_T = chosen
-            ks = QM.slice_rows(K, R, 32, 132, T)
-            nblk = -(-R // 64) * -(-K // ks)
-            route = "mma" if T >= min_t else "fma"
-            report(f"qmmt {name} T={T} {route}", buf.view(-1, 16).cpu().numpy(), nblk)
+        torch.cuda.synchronize()
+        buf.zero_()
+        QM.qmmt_fused(x, qw.codes_t, qw.scales_t, bias=torch.zeros(R, device=dev), **kw)
+        torch.cuda.synchronize()
+        nblk = -(-R // 64) * -(-K // QM.slice_rows(K, R, 32, 132, T))
+        report(f"qmmt {name} T={T} fma", buf.view(-1, 16).cpu().numpy(), nblk)
 
     lib3 = build("decode_attn", K3)
     lib3.wtt_set_stamps(buf.data_ptr())
@@ -177,6 +190,34 @@ def main():
         DA.self_attend_q8(kv, scale, q, mask, l=3, attn_ctx=A)
         torch.cuda.synchronize()
         report(f"self_attend_q8 B={B}", buf.view(-1, 16).cpu().numpy(), B * H * DA.CLUSTER)
+
+
+def probe_rows(dev, buf):
+    """K1/K2's many-row route at chip_smoke.py phase 3's shapes (turbo
+    widths, q5_0): a DTW pass's o projection (T = 32 and 128, no prologue),
+    a batched step's mlp1 (T = 8), the prompt pass's qkv (T = 128) and
+    logits head (T = 1024).  Phases 2 and 3 are the last iteration's."""
+    lib = build("qmmt", KR)
+    lib.wtt_set_stamps(buf.data_ptr())
+    _cuda._LIBS["qmmt"] = lib
+    g = torch.Generator().manual_seed(0)
+    for name, T, K, R, ln in (("o", 32, 1280, 1280, False), ("o", 128, 1280, 1280, False),
+                              ("mlp1", 8, 5120, 1280, False), ("qkv", 128, 1280, 3840, True),
+                              ("logits", 1024, 1280, 51866, True)):
+        w = torch.randn((R, K), generator=g).numpy()
+        p = Q.unpack_to_planes(Q.quantize(w, Q.GGML_TYPE_Q5_0), Q.GGML_TYPE_Q5_0, (R, K))
+        qw = QM.pitch_qweight_t(p.codes.T, p.scales.T, device=dev)
+        x = torch.randn((T, K), generator=g).to(dev)
+        kw = dict(ln_w=torch.ones(K, device=dev), ln_b=torch.zeros(K, device=dev)) if ln else {}
+        for _ in range(3):
+            QM.qmmt_fused(x, qw.codes_t, qw.scales_t, **kw)
+        torch.cuda.synchronize()
+        buf.zero_()
+        QM.qmmt_fused(x, qw.codes_t, qw.scales_t, **kw)
+        torch.cuda.synchronize()
+        plan = QM.rows_plan(T, K, R, 32, torch.cuda.get_device_properties(dev).multi_processor_count)
+        nblk = -(-R // QM.TILE) * plan.slices * plan.groups
+        report(f"qmmt_rows {name} T={T} {tuple(plan)}", buf.view(-1, 16).cpu().numpy(), nblk)
 
 
 def probe_flash(dev, buf):
