@@ -1633,6 +1633,7 @@ def serve_batched(TS, counters, path: str, tmp: str) -> dict:
     import threading
 
     from whisper_tpu_torch.audio.io import write_wav
+    from whisper_tpu_torch.runtime import trace
 
     def clip(seconds, seed):
         f = os.path.join(tmp, f"clip-{seed}.wav")
@@ -1674,7 +1675,8 @@ def serve_batched(TS, counters, path: str, tmp: str) -> dict:
         tot = lambda f: sum(getattr(t, f) for t in tm) / 1e3
         wall = 1e3 * sum(w for w, _ in entries)
         parts = {"mel": tot("t_mel_us"), "encode": tot("t_encode_us"),
-                 "window_loop": tot("t_decode_us"), "captures": tot("t_capture_us"),
+                 "window_loop": tot("t_decode_us"), "batch_wait": tot("t_batch_wait_us"),
+                 "lock_wait": tot("t_lock_wait_us"), "captures": tot("t_capture_us"),
                  "host_loop": tot("t_batchd_us"), "host_filters": tot("t_sample_us"),
                  "token_timestamps": token_ts_ms}
         log(f"  {label}: transcribe_ms={wall:.1f} " + " ".join(
@@ -1682,7 +1684,7 @@ def serve_batched(TS, counters, path: str, tmp: str) -> dict:
             + f" rest_ms={wall - sum(parts.values()):.1f} encodes={sum(t.n_encode for t in tm)} "
             f"window_tokens={sum(t.n_decode for t in tm)} host_loop_steps="
             f"{sum(t.n_batchd for t in tm)} fallbacks={sum(t.n_fail_p for t in tm)} "
-            f"(summed over {len(tm)} requests; window_loop includes waiting in the batcher)")
+            f"(summed over {len(tm)} requests)")
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1699,19 +1701,21 @@ def serve_batched(TS, counters, path: str, tmp: str) -> dict:
         status, _, _ = _post(url + "/inference", {"file": ("clip.wav", clip(3.0, 9))})
         assert status == 200
         t_warm = time.perf_counter() - t0
-        base = (batcher.n_rounds, batcher.n_coalesced_rounds, batcher.t_round_us)
+        base = (batcher.n_rounds, batcher.n_coalesced_rounds)
         g0 = sum(f.graphs for f in window_fns(ctx))
         c0 = sum(f.capture_us for f in window_fns(ctx))
         for fn in counters:
             fn.launches = 0
         mark()
-        greedy_wall, conc = _volley(url, greedy)
-        conc_timers = (list(seen), tt_ms[0])
-        beam_wall, conc_beam = _volley(url, beam)
+        trace.reset()
+        with trace.enable():      # the rounds' spans, for their time
+            greedy_wall, conc = _volley(url, greedy)
+            conc_timers = (list(seen), tt_ms[0])
+            beam_wall, conc_beam = _volley(url, beam)
         conc.update(conc_beam)
         rounds = batcher.n_rounds - base[0]
         coalesced = batcher.n_coalesced_rounds - base[1]
-        round_ms = (batcher.t_round_us - base[2]) / 1e3
+        round_ms = sum(s.t1 - s.t0 for s in trace.snapshot() if s.name == "batch.round") / 1e6
         largest = batcher.max_round_size
         solo = {}
         mark()

@@ -24,6 +24,11 @@ whisper_full_parallel role (server.cpp:211,990), the chunks joining the
 same batcher.  `-vm FILE` names the Silero VAD model that requests with
 vad=true run on the card before their window loop (the request's vad_*
 fields set its parameters).
+
+Each /inference request is a span, `server.request` (runtime/trace.py),
+which gives the request its id; inside it the body's read, the multipart
+parse, the audio (temporary file and WAV read) and the response
+(formatting and sending) are spans of their own.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..decoding.full import lang_auto_detect, transcribe
 from ..decoding.languages import lang_str, lang_str_full, max_lang_id
 from ..decoding.params import SamplingStrategy, TranscribeParams
 from ..runtime.batching import WindowBatcher, transcribe_joining
+from ..runtime import trace
 from ..runtime.context import WhisperContext
 from .output import estimate_diarization_speaker, to_timestamp
 
@@ -54,16 +60,21 @@ from .output import estimate_diarization_speaker, to_timestamp
 # --------------------------------------------------------------------------
 
 def parse_multipart(body: bytes, content_type: str) -> Dict[str, Tuple[str, bytes]]:
-    """Returns {field_name: (filename, content)}."""
+    """Returns {field_name: (filename, content)}.  A part's content is every
+    byte between the CRLF that ends its header block and the CRLF that
+    begins the next delimiter (RFC 2046 section 5.1.1): bytes of the
+    content itself, CR and LF included, are kept."""
     m = re.search(r'boundary="?([^";]+)"?', content_type)
     if not m:
         raise ValueError("multipart boundary missing")
     boundary = m.group(1).encode()
     out: Dict[str, Tuple[str, bytes]] = {}
-    for part in body.split(b"--" + boundary):
-        part = part.strip(b"\r\n")
-        if not part or part == b"--":
-            continue
+    # a delimiter is CRLF "--" boundary; the first may open the body
+    for part in (b"\r\n" + body).split(b"\r\n--" + boundary)[1:]:
+        if part.startswith(b"--"):
+            break           # the close delimiter
+        # the rest of the delimiter's line (transport padding) and its CRLF
+        part = part.partition(b"\r\n")[2]
         if b"\r\n\r\n" not in part:
             continue
         head, content = part.split(b"\r\n\r\n", 1)
@@ -396,8 +407,14 @@ def make_handler(state: ServerState, request_path: str, inference_path: str):
                        "application/json")
 
         def _inference(self):
-            fields = parse_multipart(self._read_body(),
-                                     self.headers.get("Content-Type", ""))
+            with trace.span("server.request", request=True):
+                self._infer()
+
+        def _infer(self):
+            with trace.span("server.read"):
+                body = self._read_body()
+            with trace.span("server.parse"):
+                fields = parse_multipart(body, self.headers.get("Content-Type", ""))
             if "file" not in fields:
                 self._send(400, json.dumps(
                     {"error": "no 'file' field in the request"}),
@@ -405,18 +422,19 @@ def make_handler(state: ServerState, request_path: str, inference_path: str):
                 return
             fname, blob = fields["file"]
             suffix = os.path.splitext(fname)[1] or ".wav"
-            with tempfile.NamedTemporaryFile(suffix=suffix, delete=False) as tf:
-                tf.write(blob)
-                tmp = tf.name
-            try:
-                pcm, stereo = load_audio(tmp)
-            except Exception as e:  # noqa: BLE001
+            with trace.span("server.audio"):
+                with tempfile.NamedTemporaryFile(suffix=suffix, delete=False) as tf:
+                    tf.write(blob)
+                    tmp = tf.name
+                try:
+                    pcm, stereo = load_audio(tmp)
+                except Exception as e:  # noqa: BLE001
+                    os.unlink(tmp)
+                    self._send(400, json.dumps(
+                        {"error": f"failed to read audio: {e}"}),
+                        "application/json")
+                    return
                 os.unlink(tmp)
-                self._send(400, json.dumps(
-                    {"error": f"failed to read audio: {e}"}),
-                    "application/json")
-                return
-            os.unlink(tmp)
 
             params, extra = build_params(fields, state.defaults)
             fmt = extra["response_format"]
@@ -432,7 +450,10 @@ def make_handler(state: ServerState, request_path: str, inference_path: str):
             else:
                 segments, req_ctx = transcribe_joining(ctx, params, pcm,
                                                        batcher)
+            with trace.span("server.respond"):
+                self._respond(fmt, segments, extra, stereo, params, req_ctx, pcm)
 
+        def _respond(self, fmt, segments, extra, stereo, params, req_ctx, pcm):
             if fmt == "text":
                 self._send(200, output_str(segments, extra["diarize"],
                                            stereo),

@@ -49,6 +49,10 @@ segment graphs with the rest of the step; gloo's run on the host and
 cannot be, so under a gloo group the decoder runs its eager loop on the
 card too.  The group's backend decides, and the choice shows in the
 `eager_windows` counter and is logged once.
+
+The prompt pass and the state's load, as the host issues them, are the
+span `round.prompt` (runtime/trace.py); a call that captures graphs
+between the two records none.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ import torch
 
 from ..models.whisper import model as M
 from ..models.whisper.hparams import CHUNK_SIZE, WhisperHParams
+from ..runtime import trace
 from ..runtime.logging import log_info
 from . import graphs as CG
 from .logits import LogitFilterTables
@@ -716,13 +721,17 @@ def make_window_decoder(hp: WhisperHParams, n_beams: int, prompt_bucket: int,
                 prompt_len, temperature, seek, seek_end, rng_seed))
             head = prompt_len
         with CG.DEVICE_LOCK, numerics():
+            sp = trace.begin("round.prompt", push=False)
             cache_w, last, prompt_probs, pad = prompt_pass(params, prompt, lens,
                                                            xk, xv)
             st = state_for(params, xk, xv, base_mask, last.shape[-1], prompt.device)
             branch = max(temps)
+            n_graphs = decode_window.graphs
             graphs = segment_graphs(st, params, branch) if on_graphs else None
             st.load(cache_w, last, xk, xv, base_mask, initial_mask, temps, seeks,
                     ends, max_tokens, head, lens, seeds, pad)
+            if decode_window.graphs == n_graphs:
+                sp.end()
             # the host counts the steps, so it picks each step's segment and
             # stops at n_max itself; it reads the done flag every FLAG_EVERY
             # steps (JAX: the while_loop's cond, on the device)

@@ -15,6 +15,8 @@ when asked, and after each window the DTW token timestamps
 (decoding/dtw.py) when the context enabled them.  Grammar-constrained
 decoding (decoding/grammar.py) and the ggml-CPU parity mode
 (precision="ggml_cpu_f16") take the host token loop, as in the JAX package.
+Each pass of the seek loop is a span, `seek.window` (runtime/trace.py),
+whose time outside its encode and decode is the loop's host work.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models.whisper.hparams import CHUNK_SIZE
+from ..runtime import trace
 from ..runtime.context import WhisperContext
 from .graphs import DEVICE_LOCK
 from . import grammar as G
@@ -285,6 +288,7 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
             if not params.encoder_begin_callback(ctx):
                 break
 
+        win = trace.begin("seek.window")
         # encode current window
         if not ctx.is_empty:
             ctx.encode_window(seek, params.audio_ctx)
@@ -301,6 +305,7 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
 
         for it, t_cur in enumerate(temperatures):
             if _aborted():
+                win.end()
                 ctx.prompt_past0 = prompt_past0
                 ctx.prompt_past1 = prompt_past1
                 return result_all
@@ -541,6 +546,7 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
                 # batched decode of all beams (finished rows decode a dummy
                 # token; their outputs are ignored — keeps shapes static)
                 if _aborted():
+                    win.end()
                     ctx.prompt_past0 = prompt_past0
                     ctx.prompt_past1 = prompt_past1
                     return result_all
@@ -672,6 +678,7 @@ def full_with_state(ctx: WhisperContext, params: TranscribeParams,
             seek_delta = min(seek_end - seek, CHUNK_SIZE * 100)
 
         seek += seek_delta
+        win.end()
 
     # persist rolling context for streaming use (stream example carries it)
     ctx.prompt_past0 = prompt_past0

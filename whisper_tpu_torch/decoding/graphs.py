@@ -36,6 +36,13 @@ parity mode compute in IEEE f32 whatever the caller's TF32 flags
 (PyTorch's cuDNN convolutions default to TF32 on Hopper), and their f16
 products reduce in f32.  The flags are process-wide, so they change only
 under DEVICE_LOCK, where no other thread of the port launches.
+
+DEVICE_LOCK is a thin wrapper over one RLock that, while spans are
+recorded (runtime/trace.py), records each outermost acquisition's wait
+(`lock.wait`) and hold (`lock.hold`) under the thread's open span; nested
+acquisitions record nothing.  `DEVICE_LOCK.timed()` clocks the wait of the
+acquisition it makes whether or not spans are recorded, for the phase
+timers.
 """
 
 from __future__ import annotations
@@ -46,11 +53,77 @@ import threading
 import torch
 
 from ..ops import attention, decode_attn, enc_attn, qmm
+from ..runtime import trace
 
 COUNTED = (qmm.qmmt_fused, qmm.qmmt, qmm.qmmt_rows, qmm.qmm, decode_attn.self_attend_q8,
            enc_attn.self_attention_qkv, attention.flash_self_attention)
 
-DEVICE_LOCK = threading.RLock()
+
+class DeviceLock:
+    """One process-wide RLock whose outermost acquisitions are spans."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._depth = 0      # the holder's nesting; only the holder touches it
+        self._hold = None    # the holder's open `lock.hold` span, if recorded
+
+    def _acquire(self, clock: bool) -> int:
+        """Acquire; the ns waited (0 when nested or not clocked)."""
+        if not (clock or trace.on()):
+            self._lock.acquire()
+            self._depth += 1
+            return 0
+        t0 = trace.now()
+        self._lock.acquire()
+        t1 = trace.now()
+        self._depth += 1
+        if self._depth > 1:
+            return 0
+        if trace.on():
+            trace.record("lock.wait", t0, t1)
+            self._hold = trace.begin("lock.hold", push=False, t0=t1)
+        return t1 - t0
+
+    def acquire(self) -> bool:
+        self._acquire(False)
+        return True
+
+    def release(self) -> None:
+        self._depth -= 1
+        hold = None
+        if not self._depth and self._hold is not None:
+            hold, self._hold = self._hold, None
+            hold.t1 = trace.now()
+        self._lock.release()
+        if hold is not None:
+            hold.end(hold.t1)
+
+    def __enter__(self):
+        return self.acquire()
+
+    def __exit__(self, *exc):
+        self.release()
+
+    def timed(self) -> "_Timed":
+        """`with DEVICE_LOCK.timed() as held:` ... `held.wait_ns`."""
+        return _Timed(self)
+
+
+class _Timed:
+    __slots__ = ("lock", "wait_ns")
+
+    def __init__(self, lock: DeviceLock):
+        self.lock, self.wait_ns = lock, 0
+
+    def __enter__(self):
+        self.wait_ns = self.lock._acquire(True)
+        return self
+
+    def __exit__(self, *exc):
+        self.lock.release()
+
+
+DEVICE_LOCK = DeviceLock()
 _RETIRED = []     # graphs of dropped CountedGraphs, destroyed by the next capture
 
 

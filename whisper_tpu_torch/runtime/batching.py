@@ -14,12 +14,18 @@ Workers that fall off the common path (a temperature fallback with another
 lane count, the host loop at t>0) run their request solo in the same round
 or outside the batcher; the batch goes on without them.  A group that fails
 raises its exception in each of its workers; it is never rerun solo.
+
+Spans (runtime/trace.py): each queued request's `batch.wait`, from its
+arrival to the take of its round, under its worker's open span; each
+round's `batch.round` (a root span: its attributes are its windows, groups
+and graphs captured, and its requests' ids).  The queue wait and the
+round's wait for DEVICE_LOCK are charged to the request's worker thread
+(`trace.charge_waits`) for its context's timers.
 """
 
 from __future__ import annotations
 
 import threading
-import time
 from collections import defaultdict
 from typing import Any, Dict, List, Optional
 
@@ -28,10 +34,12 @@ import torch
 
 from ..decoding.graphs import DEVICE_LOCK
 from ..models.whisper.model import XK8
+from . import trace
 
 
 class _Request:
-    __slots__ = ("key", "args", "result", "capture", "error", "event")
+    __slots__ = ("key", "args", "result", "capture", "error", "event", "rid",
+                 "traced", "t_queued", "t_taken", "lock_ns")
 
     def __init__(self, key, args):
         self.key = key
@@ -40,6 +48,10 @@ class _Request:
         self.capture = (0, 0)     # (graphs, µs) captured for this request
         self.error: Optional[BaseException] = None
         self.event = threading.Event()
+        self.traced = trace.on()  # its batch.wait is recorded
+        self.rid = trace.request_id() if self.traced else 0
+        self.t_queued = self.t_taken = trace.now()
+        self.lock_ns = 0          # its round's wait for DEVICE_LOCK
 
 
 def _stack(vals):
@@ -77,11 +89,10 @@ class WindowBatcher:
         # the batch, so the deadline waits for it
         self.max_wait_s = max_wait_s
         # dispatch stats: rounds run, rounds with > 1 request coalesced,
-        # most requests in one round, time inside rounds
+        # most requests in one round
         self.n_rounds = 0
         self.n_coalesced_rounds = 0
         self.max_round_size = 0
-        self.t_round_us = 0
 
     # -- worker side -----------------------------------------------------------
 
@@ -112,6 +123,9 @@ class WindowBatcher:
                 batch = (self._take_locked() if req in self.pending
                          and not self.n_running else None)
             self._run(batch)
+        if req.traced:
+            trace.record("batch.wait", req.t_queued, req.t_taken)
+        trace.charge_waits(req.lock_ns, req.t_taken - req.t_queued)
         if req.error is not None:
             raise req.error
         return req.result, req.capture
@@ -128,6 +142,9 @@ class WindowBatcher:
     def _take_locked(self) -> List[_Request]:
         """The pending requests as one round (the batcher's lock held)."""
         batch, self.pending = self.pending, []
+        t = trace.now()
+        for r in batch:
+            r.t_taken = t
         self.n_running += 1
         self.n_rounds += 1
         if len(batch) > 1:
@@ -139,10 +156,10 @@ class WindowBatcher:
         """Run a round taken by _take_locked, outside the batcher's lock."""
         if not batch:
             return
-        t0 = time.perf_counter()
         groups: Dict[Any, List[_Request]] = defaultdict(list)
         for r in batch:
             groups[r.key].append(r)
+        sp = trace.begin("batch.round", root=True)
         try:
             for key, reqs in groups.items():
                 try:
@@ -154,19 +171,27 @@ class WindowBatcher:
                     for r in reqs:
                         r.event.set()
         finally:
+            if sp is not trace.OFF:
+                sp.attrs = {"windows": len(batch), "groups": len(groups),
+                            "graphs": sum(r.capture[0] for r in batch),
+                            "rids": tuple(r.rid for r in batch)}
+            sp.end()
             with self.lock:
                 self.n_running -= 1
-                self.t_round_us += int((time.perf_counter() - t0) * 1e6)
 
     def _run_group(self, key, reqs: List[_Request]):
         ctx = self.ctx
         if len(reqs) == 1:
-            reqs[0].result, reqs[0].capture = ctx._decode_window_exec(
-                key, *reqs[0].args)
+            with DEVICE_LOCK.timed() as held:
+                reqs[0].lock_ns = held.wait_ns
+                reqs[0].result, reqs[0].capture = ctx._decode_window_exec(
+                    key, *reqs[0].args)
             return
         # every group runs natively batched: windows x lanes ride the decode
         # step's row axis (the JAX package's vmapped mode is not ported)
-        with DEVICE_LOCK:
+        with DEVICE_LOCK.timed() as held:
+            for r in reqs:
+                r.lock_ns = held.wait_ns
             fn = ctx.window_decoder(key, n_windows=len(reqs))
             # args per request: (prompt_padded, prompt_len, xk, xv,
             # base_mask, initial_mask, temperature, seek, seek_end,

@@ -16,6 +16,11 @@ kernel, and on the card it computes inside decoding/graphs.py `full_f32`.
 Every device section holds decoding/graphs.py's DEVICE_LOCK, so contexts
 cloned for concurrent requests (`clone_state`, runtime/batching.py) can
 run in threads of their own.
+
+The mel, the encode and the window decode are spans (runtime/trace.py:
+`seek.mel`, `encode` with `encode.issue` inside, `decode`), and the phase
+timers take their durations from the spans' own clock reads; the waits
+for DEVICE_LOCK and in the batcher's queue go to timers of their own.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..models.whisper.convert import params_from_numpy
 from ..models.whisper.load import (WhisperModel, build_parity_overlay,
                                    build_qweight_overlay, load_model)
 from ..ops.qmm import QWeight, pitch_qweight_t
+from . import trace
 from .timings import Timings
 
 # token-count buckets for prompt decodes (steps are always 1)
@@ -53,10 +59,14 @@ _MATMUL_KEYS = {"qkv_w", "o_w", "mlp0_w", "mlp1_w", "xq_w", "xk_w", "xv_w",
 @dataclass
 class ContextTimings(Timings):
     """The phase timers, the window loop's CUDA-graph captures (kept out of
-    t_decode_us), and the DTW passes (decoding/dtw.py, one per window)."""
+    t_decode_us), the DTW passes (decoding/dtw.py, one per window), and
+    the waits kept out of t_encode_us and t_decode_us: for DEVICE_LOCK,
+    and a window decode's in the batcher's queue until its round is taken."""
 
     t_capture_us: int = 0
     n_capture: int = 0
+    t_lock_wait_us: int = 0
+    t_batch_wait_us: int = 0
     t_dtw_us: int = 0
     n_dtw: int = 0
 
@@ -236,9 +246,9 @@ class WhisperContext:
     # -- mel -----------------------------------------------------------------
 
     def pcm_to_mel(self, samples: np.ndarray) -> None:
-        t0 = time.perf_counter()
-        self.mel, self.n_len_org = self.mel_fn(samples)
-        self.timings.t_mel_us += int((time.perf_counter() - t0) * 1e6)
+        with trace.timed("seek.mel") as sp:
+            self.mel, self.n_len_org = self.mel_fn(samples)
+        self.timings.t_mel_us += sp.ns // 1000
 
     def set_mel(self, mel: np.ndarray, n_len_org: Optional[int] = None) -> None:
         """whisper_set_mel: a caller's (n_mel, n_len) mel in place of
@@ -258,23 +268,25 @@ class WhisperContext:
         assert self.mel is not None, "call pcm_to_mel first"
         hp = self.hp
         n_ctx = audio_ctx if audio_ctx > 0 else hp.n_audio_ctx
-        t0 = time.perf_counter()
-        window = np.zeros((hp.n_mels, 2 * n_ctx), np.float32)
-        i1 = min(seek + 2 * n_ctx, self.n_len)
-        if i1 > seek:
-            window[:, : i1 - seek] = self.mel[:, seek:i1]
-        with DEVICE_LOCK, self.numerics():
-            enc = M.encode(self.params, torch.from_numpy(window).to(self.device),
-                           hp, dtype=self.compute_dtype, parity=self.parity)
-            self.xk, self.xv = M.compute_cross_kv(
-                self.params, enc, hp, dtype=self.compute_dtype,
-                itype=self.cross_itype, parity=self.parity)
-            self._sync()
-        self.timings.t_encode_us += int((time.perf_counter() - t0) * 1e6)
+        with trace.timed("encode") as sp:
+            window = np.zeros((hp.n_mels, 2 * n_ctx), np.float32)
+            i1 = min(seek + 2 * n_ctx, self.n_len)
+            if i1 > seek:
+                window[:, : i1 - seek] = self.mel[:, seek:i1]
+            with DEVICE_LOCK.timed() as held, self.numerics():
+                with trace.span("encode.issue"):
+                    enc = M.encode(self.params, torch.from_numpy(window).to(self.device),
+                                   hp, dtype=self.compute_dtype, parity=self.parity)
+                    self.xk, self.xv = M.compute_cross_kv(
+                        self.params, enc, hp, dtype=self.compute_dtype,
+                        itype=self.cross_itype, parity=self.parity)
+                self._sync()
+            # max_initial_ts precision derives from the MODEL's full audio ctx
+            # (src/whisper.cpp:6338)
+            self.filter_tables = LogitFilterTables(self.vocab, hp.n_audio_ctx)
+        self.timings.t_encode_us += (sp.ns - held.wait_ns) // 1000
+        self.timings.t_lock_wait_us += held.wait_ns // 1000
         self.timings.n_encode += 1
-        # max_initial_ts precision derives from the MODEL's full audio ctx
-        # (src/whisper.cpp:6338)
-        self.filter_tables = LogitFilterTables(self.vocab, hp.n_audio_ctx)
 
     def new_cache(self, n_beam: int, dtype=None):
         with DEVICE_LOCK:
@@ -290,7 +302,29 @@ class WhisperContext:
         "beam"; returns a WindowResult of numpy arrays.
 
         With a WindowBatcher attached (runtime/batching.py) the request
-        joins the current lockstep batch instead of running at once."""
+        joins the current lockstep batch instead of running at once.
+        t_decode_us leaves out the graphs captured for the call, its waits
+        for DEVICE_LOCK (its round's, where another thread ran it) and its
+        wait in the batcher's queue."""
+        with trace.timed("decode") as sp:
+            res, (n_graphs, capture_us), lock_ns, batch_ns = self._decode_window(
+                prompt, n_beams, temperature, seek, seek_end, params,
+                no_timestamps, rng_seed, strategy)
+        # the graphs captured for this call count apart from decode time (a
+        # batched group's, once: on its first request)
+        self.timings.t_decode_us += (sp.ns - lock_ns - batch_ns) // 1000 - capture_us
+        self.timings.t_lock_wait_us += lock_ns // 1000
+        self.timings.t_batch_wait_us += batch_ns // 1000
+        self.timings.t_capture_us += capture_us
+        self.timings.n_capture += n_graphs
+        self.timings.n_decode += int(res.n_tok.max()) if res.n_tok.size else 0
+        self.timings.n_prompt += len(prompt)
+        return res
+
+    def _decode_window(self, prompt, n_beams, temperature, seek, seek_end, params,
+                       no_timestamps, rng_seed, strategy):
+        """decode_window_device's work: (its result, (graphs, µs) captured,
+        ns waited for DEVICE_LOCK, ns waited in the batcher's queue)."""
         bt = _bucket(len(prompt))
         # key[:5] picks the decoder; the digest keeps the batcher from
         # coalescing requests whose arguments differ where _run_group takes
@@ -307,25 +341,20 @@ class WhisperContext:
         prompt_padded = np.zeros(bt, np.int64)
         prompt_padded[: len(prompt)] = prompt
         dev = self.device
-        with DEVICE_LOCK:
+        with DEVICE_LOCK.timed() as held:
             args = (torch.from_numpy(prompt_padded).to(dev), len(prompt),
                     self.xk, self.xv, torch.from_numpy(base_mask).to(dev),
                     torch.from_numpy(initial_mask).to(dev), float(temperature),
                     int(seek), int(seek_end), int(params.max_tokens), rng_seed)
-        t0 = time.perf_counter()
-        if self.batcher is not None:
-            res, (n_graphs, capture_us) = self.batcher.submit(key, args)
-        else:
-            res, (n_graphs, capture_us) = self._decode_window_exec(key, *args)
-        dt = int((time.perf_counter() - t0) * 1e6)
-        # the graphs captured for this call count apart from decode time (a
-        # batched group's, once: on its first request)
-        self.timings.t_decode_us += dt - capture_us
-        self.timings.t_capture_us += capture_us
-        self.timings.n_capture += n_graphs
-        self.timings.n_decode += int(res.n_tok.max()) if res.n_tok.size else 0
-        self.timings.n_prompt += len(prompt)
-        return res
+        lock_ns = held.wait_ns
+        if self.batcher is None:
+            with DEVICE_LOCK.timed() as held:
+                res, capture = self._decode_window_exec(key, *args)
+            return res, capture, lock_ns + held.wait_ns, 0
+        lock0, batch0 = trace.waits()
+        res, capture = self.batcher.submit(key, args)
+        lock1, batch1 = trace.waits()
+        return res, capture, lock_ns + lock1 - lock0, batch1 - batch0
 
     def window_decoder(self, key, n_windows: int = 1):
         """The window decoder for key[:5], one window or `n_windows`
