@@ -145,17 +145,34 @@ def full_f32():
         cm.allow_fp16_reduced_precision_reduction = red
 
 
+_SIDE = {}         # device index -> the stream every capture runs on
+
+
+def _side_stream() -> torch.cuda.Stream:
+    """The one side stream of the device that every CountedGraph warms up and
+    is captured on.  PyTorch keeps a cuBLAS workspace per handle and stream
+    for the life of the process (32 MiB on an H100): on one stream the first
+    warm-up makes it, outside any capture.  A fresh stream for each warm-up
+    (PyTorch hands out 32 in turn) and the capture's own stream made up to
+    two at a capture."""
+    dev = torch.cuda.current_device()
+    if dev not in _SIDE:
+        _SIDE[dev] = torch.cuda.Stream()
+    return _SIDE[dev]
+
+
 class CountedGraph:
-    """`fn` run once eagerly on a side stream (so that lazy set-up, such as
-    the decode matmul's arrival counters, happens outside the capture), then
-    captured into a CUDA graph in the memory pool `pool`, all under
-    DEVICE_LOCK.  `generators`, when given, are registered with the graph,
-    so each replay draws the numbers the next eager call would draw."""
+    """`fn` run once eagerly on the side stream (so that lazy set-up, such as
+    the decode matmul's arrival counters and cuBLAS's workspace, happens
+    outside the capture), then captured on it into a CUDA graph in the
+    memory pool `pool` (None: a pool of its own), all under DEVICE_LOCK.
+    `generators`, when given, are registered with the graph, so each replay
+    draws the numbers the next eager call would draw."""
 
     def __init__(self, fn, pool, generators=()):
         with DEVICE_LOCK:
             _RETIRED.clear()
-            side = torch.cuda.Stream()
+            side = _side_stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 fn()
@@ -164,7 +181,7 @@ class CountedGraph:
             self.graph = torch.cuda.CUDAGraph()
             for g in generators:
                 self.graph.register_generator_state(g)
-            with torch.cuda.graph(self.graph, pool=pool):
+            with torch.cuda.graph(self.graph, pool=pool, stream=side):
                 fn()
             self.deltas = [(f, f.launches - n) for f, n in zip(COUNTED, before)
                            if f.launches != n]

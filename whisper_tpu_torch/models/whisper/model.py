@@ -47,6 +47,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...decoding.graphs import CountedGraph
 from ...ops import attention as flash
 from ...ops import decode_attn, enc_attn
 from ...ops.qmm import (QWeight, QWeightT, embed_lookup, qmm_auto, qmmt_auto,
@@ -345,9 +346,17 @@ def _layer(blocks: Dict[str, Any], l: int) -> Dict[str, Any]:
     return {k: _at(v, l) for k, v in blocks.items()}
 
 
+def _padded_len(n_ctx: int, dtype, parity: bool, pad_to: Optional[int]) -> Optional[int]:
+    """The residual stream's padded length (`encode`), None for unpadded."""
+    if pad_to is None and not parity and flash.use_flash(n_ctx, dtype):
+        return flash._round_up(max(n_ctx, 512), 512)
+    return pad_to
+
+
 def encode(params: Dict[str, Any], mel: torch.Tensor, hp: WhisperHParams,
            dtype=torch.bfloat16, pad_to: Optional[int] = None,
-           parity: bool = False, tp=None) -> torch.Tensor:
+           parity: bool = False, tp=None, graph: Optional["EncoderGraph"] = None
+           ) -> torch.Tensor:
     """mel (n_mels, 2*n_ctx) -> encoder embeddings (n_ctx, n_state).
 
     Padded residency: when the flash route is on (`use_flash`), the
@@ -357,14 +366,23 @@ def encode(params: Dict[str, Any], mel: torch.Tensor, hp: WhisperHParams,
     off (-nfa) the stream stays unpadded, as in the JAX package, and so it
     does in the parity mode, which never takes a kernel.  `pad_to` forces a
     padded length.  tp: `params` is this rank's part (module docstring); the
-    result is the full (n_ctx, n_state) on every rank."""
+    result is the full (n_ctx, n_state) on every rank.
+
+    graph: an `EncoderGraph` captured for these arguments
+    (`encoder_graph_key`); the pass is its replay, and the result is its
+    static output, which the next replay overwrites."""
+    if graph is not None:
+        return graph(mel)
+    return _encode(params, mel, hp, dtype, pad_to, parity, tp)
+
+
+def _encode(params, mel, hp, dtype, pad_to=None, parity=False, tp=None):
+    """`encode`'s pass, run op by op."""
     enc = params["enc"]
     x = conv_stem(enc, mel, dtype, parity)
     n_ctx = x.shape[0]
     x = x + enc["pos_embd"][:n_ctx]
-    t_pad = pad_to
-    if t_pad is None and not parity and flash.use_flash(n_ctx, dtype):
-        t_pad = flash._round_up(max(n_ctx, 512), 512)
+    t_pad = _padded_len(n_ctx, dtype, parity, pad_to)
     true_len = None
     if t_pad is not None and t_pad > n_ctx:
         x = F.pad(x, (0, 0, 0, t_pad - n_ctx))
@@ -373,6 +391,52 @@ def encode(params: Dict[str, Any], mel: torch.Tensor, hp: WhisperHParams,
         x = _encoder_block(x, _layer(enc["blocks"], l), hp.n_audio_head // group_size(tp),
                            hp.eps, dtype, true_len=true_len, parity=parity, tp=tp)
     return layer_norm(x[:n_ctx], enc["ln_post_w"], enc["ln_post_b"], hp.eps)
+
+
+def encoder_graph_key(params: Dict[str, Any], hp: WhisperHParams, n_ctx: int, dtype,
+                      device: torch.device, parity: bool = False, tp=None):
+    """The key of the `EncoderGraph` an encode with these arguments replays,
+    or None where it runs op by op: off the card; in the parity mode (f16
+    block dots under full_f32); with `CapturedWeight` parameters (the
+    imatrix collector is a host side effect that a replay would drop);
+    under tp; at a context other than the model's (a user's -ac never adds
+    a graph).  The key is the padded length and the attention route, which
+    WTPU_ENC_ATTN and the flash switch choose at each call, so a changed
+    route takes a graph of its own."""
+    if device.type != "cuda" or parity or tp is not None or n_ctx != hp.n_audio_ctx:
+        return None
+    enc = params["enc"]
+    if any(isinstance(v, CapturedWeight) for v in (*enc.values(), *enc["blocks"].values())):
+        return None
+    t_pad = _padded_len(n_ctx, dtype, parity, None) or n_ctx
+    return t_pad, _enc_attn_route(dtype, t_pad, hp.n_audio_head,
+                                  hp.n_audio_state // hp.n_audio_head)
+
+
+class EncoderGraph:
+    """`encode`'s pass over the model's whole context as one CUDA graph
+    (decoding/graphs.py CountedGraph, in a memory pool of its own) in place
+    of ~800 launches issued one by one.  `mel` is the static (n_mels,
+    2*n_audio_ctx) f32 input, `out` the static (n_audio_ctx, n_state) f32
+    output.  A call copies a window's mel in, replays, and returns `out`.
+    Build and call it under DEVICE_LOCK."""
+
+    def __init__(self, params: Dict[str, Any], hp: WhisperHParams, dtype,
+                 device: torch.device):
+        self.mel = torch.zeros((hp.n_mels, 2 * hp.n_audio_ctx), dtype=torch.float32,
+                               device=device)
+        self.out = None
+
+        def run():
+            self.out = None      # the warm-up's output is freed before the capture
+            self.out = _encode(params, self.mel, hp, dtype)
+
+        self.graph = CountedGraph(run, None)
+
+    def __call__(self, mel: torch.Tensor) -> torch.Tensor:
+        self.mel.copy_(mel)
+        self.graph.replay()
+        return self.out
 
 
 class XK8(NamedTuple):

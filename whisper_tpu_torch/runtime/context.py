@@ -21,6 +21,11 @@ The mel, the encode and the window decode are spans (runtime/trace.py:
 `seek.mel`, `encode` with `encode.issue` inside, `decode`), and the phase
 timers take their durations from the spans' own clock reads; the waits
 for DEVICE_LOCK and in the batcher's queue go to timers of their own.
+
+On the card a full-window encode replays one CUDA graph of the encoder
+(models/whisper/model.py `EncoderGraph`), captured at the context's first
+such encode and shared with its clones; where `encoder_graph_key` says
+no (the parity mode, imatrix capture weights, -ac) it runs op by op.
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ class ContextTimings(Timings):
     """The phase timers, the window loop's CUDA-graph captures (kept out of
     t_decode_us), the DTW passes (decoding/dtw.py, one per window), and
     the waits kept out of t_encode_us and t_decode_us: for DEVICE_LOCK,
-    and a window decode's in the batcher's queue until its round is taken."""
+    and a window decode's in the batcher's queue until its round is taken;
+    n_encode_graph: the encodes that replayed the encoder's CUDA graph."""
 
     t_capture_us: int = 0
     n_capture: int = 0
@@ -69,6 +75,7 @@ class ContextTimings(Timings):
     t_batch_wait_us: int = 0
     t_dtw_us: int = 0
     n_dtw: int = 0
+    n_encode_graph: int = 0
 
 
 def _bucket(n: int) -> int:
@@ -165,6 +172,7 @@ class WhisperContext:
         self.xk = None
         self.xv = None
         self._window_fns: Dict[Tuple, object] = {}
+        self._encoder_graphs: Dict[Tuple, M.EncoderGraph] = {}
         # [EXPERIMENTAL] DTW token-level timestamps
         # (whisper_context_params.dtw_*, include/whisper.h:116-129)
         self.dtw_token_timestamps = False
@@ -264,7 +272,13 @@ class WhisperContext:
 
     def encode_window(self, seek: int, audio_ctx: int = 0) -> None:
         """Encode 2*n_ctx mel frames starting at `seek`
-        (whisper_encode_internal, src/whisper.cpp:2364-2462)."""
+        (whisper_encode_internal, src/whisper.cpp:2364-2462).
+
+        One `M.encode` call a window, under DEVICE_LOCK; where it replays
+        the encoder's graph its result is the graph's static output, which
+        the next window's replay overwrites, so the cross K/V is computed
+        from it inside the same hold of the lock.  The `encode` span's
+        attribute `graph` is 1 for a replay, 0 for an encode op by op."""
         assert self.mel is not None, "call pcm_to_mel first"
         hp = self.hp
         n_ctx = audio_ctx if audio_ctx > 0 else hp.n_audio_ctx
@@ -274,9 +288,11 @@ class WhisperContext:
             if i1 > seek:
                 window[:, : i1 - seek] = self.mel[:, seek:i1]
             with DEVICE_LOCK.timed() as held, self.numerics():
+                graph = self._encoder_graph(n_ctx)
                 with trace.span("encode.issue"):
                     enc = M.encode(self.params, torch.from_numpy(window).to(self.device),
-                                   hp, dtype=self.compute_dtype, parity=self.parity)
+                                   hp, dtype=self.compute_dtype, parity=self.parity,
+                                   graph=graph)
                     self.xk, self.xv = M.compute_cross_kv(
                         self.params, enc, hp, dtype=self.compute_dtype,
                         itype=self.cross_itype, parity=self.parity)
@@ -284,9 +300,25 @@ class WhisperContext:
             # max_initial_ts precision derives from the MODEL's full audio ctx
             # (src/whisper.cpp:6338)
             self.filter_tables = LogitFilterTables(self.vocab, hp.n_audio_ctx)
+            sp.attrs = {"graph": int(graph is not None)}
         self.timings.t_encode_us += (sp.ns - held.wait_ns) // 1000
         self.timings.t_lock_wait_us += held.wait_ns // 1000
         self.timings.n_encode += 1
+        self.timings.n_encode_graph += graph is not None
+
+    def _encoder_graph(self, n_ctx: int) -> Optional[M.EncoderGraph]:
+        """The encoder's graph for this window (None: encode op by op),
+        captured at first use and shared with the clones.  Hold
+        DEVICE_LOCK."""
+        key = M.encoder_graph_key(self.params, self.hp, n_ctx, self.compute_dtype,
+                                  self.device, self.parity)
+        if key is None:
+            return None
+        graph = self._encoder_graphs.get(key)
+        if graph is None:
+            graph = self._encoder_graphs[key] = M.EncoderGraph(
+                self.params, self.hp, self.compute_dtype, self.device)
+        return graph
 
     def new_cache(self, n_beam: int, dtype=None):
         with DEVICE_LOCK:
